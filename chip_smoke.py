@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--profile] [--solve]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or /usr/local/cuda) and
-``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the two
-kernels of the main path from ``exaadmm_tpu_torch/csrc`` and runs, in order:
+``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the three
+kernels of the main paths from ``exaadmm_tpu_torch/csrc`` (one nvcc process
+per source, all at once) and runs, in order:
 
 0. the card's name and power limit, and the kernels' build (seconds and the
    ``-Xptxas -v`` report);
@@ -13,24 +14,51 @@ kernels of the main path from ``exaadmm_tpu_torch/csrc`` and runs, in order:
    synthetic 9241-bus grid, fp64 and fp32: max relative difference per
    channel (difference over the channel's largest magnitude) <= 1e-13 in
    fp64 and <= 1e-6 in fp32, two kernel runs bit-identical, and both times;
+1b. the same scatter over 8 periods folded into the channel axis (the
+   multi-period bus update, synthetic 2869 buses), on the arc values and on
+   the generator values with the ramp terms blended in: bit-identical to 8
+   single-period kernel calls, and within phase 1's thresholds of
+   ``index_add_``;
 2. the branch TRON/ALM kernel against its plain version on that grid's
    15,710-line batch at the first inner iteration, prox targets perturbed
    from a numpy seed, both at step_cap 50: iteration counts equal on
    >= 99.5 % of lanes and |dx| <= 1e-8 on those lanes in fp64; >= 95 %,
    1e-3 on the agreeing lanes and 5e-3 on all lanes in fp32 (two compilers'
-   fp32 rounding may flip a TRON branch decision on a few lanes);
+   fp32 rounding may flip a TRON branch decision on a few lanes); then the
+   same on the multi-period path's branch batch, the 39,016 lines of
+   synthetic 2869 buses tiled over 8 periods;
+2b. the ramp TRON/ALM kernel against its plain version on the 3,010-lane
+   ramp batch of synthetic 2869 buses over 8 periods, at the first inner
+   iteration, generator prox targets perturbed from a numpy seed, step_cap
+   50, with phase 2's thresholds;
 3. case9 end to end through ``solve_acopf(..., device="cuda")``, fp64:
    Solved, objective and dispatch in the known bands, outer/cumul beside the
    pins 25/1087 (within 1 outer and 2 %), one TRON launch per inner
    iteration;
-4. the main path at full size: synthetic 9241 buses, fp64, flat start at
-   rho (3e3, 3e5), 3 outer x 100 inner iterations: inner iterations per
-   second, the final mismatch and the peak device memory. The kernels'
-   launch counters are zeroed just before and read just after this run.
+3b. case9 over 3 periods, no warm start, through
+   ``solve_mpacopf(..., device="cuda")``, fp64: Solved, outer/cumul within
+   1 outer and 2 % of the pins 20/1007, objective within 1e-6 relative of
+   16015.6958770167, ramp violation <= 1e-3, one ramp and one branch launch
+   per inner iteration; and a one-period run of the same entry point, which
+   has no ramp batch and must launch no ramp kernel;
+4. the single-period main path at full size: synthetic 9241 buses, fp64,
+   flat start at rho (3e3, 3e5), 3 outer x 100 inner iterations: inner
+   iterations per second of the ADMM loop (``info.time_overall``, after the
+   model is built) and of the whole call, the final mismatch and the peak
+   device memory;
+5. the multi-period main path at full width: synthetic 2869 buses (4,877
+   lines, 430 generators), 8 periods of the load profile
+   ``synthetic_load_profile``, fp64, flat start at rho (4e2, 4e4), 3 outer x
+   50 inner iterations with outer_eps 0: the same rates as phase 4, the
+   final mismatch, the ramp violation and the peak device memory.
 
-``--profile`` adds a breakdown of one inner iteration of phase 4's
-configuration (host time per hook, device time by kernel, idle share);
-``--solve`` adds the time to tolerance of that configuration's full solve.
+The kernels' launch counters are zeroed just before phases 4 and 5 and read
+just after each; the ``launches`` of a kernel in the JSON line are the sum
+over those two runs.
+
+``--profile`` adds a breakdown of one inner iteration of phase 4's and of
+phase 5's configuration (host time per hook, device time by kernel, idle
+share); ``--solve`` adds the time to tolerance of phase 4's configuration.
 
 Each phase prints one line of numbers; any failure raises, so the script
 exits non-zero and prints no result. The line before the last is one JSON
@@ -51,10 +79,14 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CASE9 = os.path.join(ROOT, "data", "case9.m")
+DEMAND9 = os.path.join(ROOT, "data", "case9_demand")
 PIN_OUTER, PIN_CUMUL = 25, 1087
+MP_PIN_OUTER, MP_PIN_CUMUL, MP_PIN_OBJ = 20, 1007, 16015.6958770167
 KERNEL_SOURCES = {
     "tron_alm_branch": ("exaadmm_tpu_torch/csrc/tron_alm_branch.cu",
                         "exaadmm_tpu/ops/tron_pallas.py:42"),
+    "tron_alm_ramp": ("exaadmm_tpu_torch/csrc/tron_alm_ramp.cu",
+                      "exaadmm_tpu/ops/tron_pallas.py:42"),
     "bus_scatter": ("exaadmm_tpu_torch/csrc/bus_scatter.cu",
                     "exaadmm_tpu/ops/bus_pallas.py:42"),
 }
@@ -105,9 +137,14 @@ def phase0_device(dev, on_card: bool) -> dict:
         print(card)
         print(f"phase 0: device {info['name']!r} count {info['count']} "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
-        for name, mod in (("tron_alm_branch", tron_cuda),
-                          ("bus_scatter", bus_cuda)):
-            mod.library()
+        t0 = time.perf_counter()
+        _build.build(KERNEL_SOURCES)
+        tron_cuda.library(tron_cuda.BRANCH)
+        tron_cuda.library(tron_cuda.RAMP)
+        bus_cuda.library()
+        print(f"phase 0: built {len(KERNEL_SOURCES)} kernels in parallel in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name in KERNEL_SOURCES:
             log = [ln.strip() for ln in _build.build_logs[name].splitlines()
                    if "Compiling entry" in ln or "registers" in ln
                    or "spill" in ln]
@@ -162,6 +199,43 @@ def phase1_bus(dev, data, on_card: bool) -> dict:
     return out
 
 
+def _tron_vs_plain(label: str, kernel, plain, act, dtype, dev) -> dict:
+    """Run a TRON/ALM kernel and its plain version on the same batch, hold
+    them to phase 2's thresholds and time both."""
+    rk = kernel()
+    rp = plain()
+    _sync(dev)
+    a = act.cpu().numpy()
+    mk = rk.minor_iters.cpu().numpy()[a]
+    mp = rp.minor_iters.cpu().numpy()[a]
+    ak = rk.alm_iters.cpu().numpy()[a]
+    ap = rp.alm_iters.cpu().numpy()[a]
+    same = (mk == mp) & (ak == ap)
+    dx = (rk.x - rp.x).abs().amax(dim=0).cpu().numpy()[a]
+    frac = float(same.mean())
+    dx_same = float(dx[same].max()) if same.any() else 0.0
+    dx_all = float(dx.max())
+    _check(bool(np.isfinite(rk.x.cpu().numpy()).all()),
+           f"{label}: non-finite x")
+    if dtype == torch.float64:
+        _check(frac >= 0.995, f"{label} f64: only {frac:.4%} lanes agree")
+        _check(dx_same <= 1e-8, f"{label} f64: |dx| {dx_same:.3e} > 1e-8")
+    else:
+        _check(frac >= 0.95, f"{label} f32: only {frac:.4%} lanes agree")
+        _check(dx_same <= 1e-3, f"{label} f32: |dx| {dx_same:.3e} > 1e-3")
+        _check(dx_all <= 5e-3, f"{label} f32: |dx| {dx_all:.3e} > 5e-3")
+    ms = time_ms(kernel, dev, reps=5, warmup=1)
+    plain_ms = time_ms(plain, dev, reps=1, warmup=0)
+    key = "f64" if dtype == torch.float64 else "f32"
+    print(f"{label} {key} B={same.size} step_cap=50: {int((~same).sum())} of "
+          f"{same.size} lanes differ in minor/alm iterations ({frac:.4%} "
+          f"agree), max |dx| agreeing {dx_same:.3e}, all {dx_all:.3e}; minor "
+          f"iters mean {mk.mean():.2f} max {mk.max()}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.1f} ms")
+    return dict(frac=frac, dx_same=dx_same, dx_all=dx_all, ms=ms,
+                plain_ms=plain_ms)
+
+
 def phase2_tron(dev, data, on_card: bool) -> dict:
     from exaadmm_tpu_torch.models.acopf import branch
     from exaadmm_tpu_torch.models.acopf import model as M
@@ -190,39 +264,153 @@ def phase2_tron(dev, data, on_card: bool) -> dict:
             return tron_cuda.tron_alm_branch_plain(
                 x0, xl, xu, params, lam0, mu0, active0=act, **opts)
 
-        rk = kernel()
-        rp = plain()
-        _sync(dev)
-        a = act.cpu().numpy()
-        mk = rk.minor_iters.cpu().numpy()[a]
-        mp = rp.minor_iters.cpu().numpy()[a]
-        ak = rk.alm_iters.cpu().numpy()[a]
-        ap = rp.alm_iters.cpu().numpy()[a]
-        same = (mk == mp) & (ak == ap)
-        dx = (rk.x - rp.x).abs().amax(dim=0).cpu().numpy()[a]
-        frac = float(same.mean())
-        dx_same = float(dx[same].max()) if same.any() else 0.0
-        dx_all = float(dx.max())
-        _check(bool(np.isfinite(rk.x.cpu().numpy()).all()),
-               "tron kernel: non-finite x")
-        if dtype == torch.float64:
-            _check(frac >= 0.995, f"tron f64: only {frac:.4%} lanes agree")
-            _check(dx_same <= 1e-8, f"tron f64: |dx| {dx_same:.3e} > 1e-8")
-        else:
-            _check(frac >= 0.95, f"tron f32: only {frac:.4%} lanes agree")
-            _check(dx_same <= 1e-3, f"tron f32: |dx| {dx_same:.3e} > 1e-3")
-            _check(dx_all <= 5e-3, f"tron f32: |dx| {dx_all:.3e} > 5e-3")
-        ms = time_ms(kernel, dev, reps=5, warmup=1)
-        plain_ms = time_ms(plain, dev, reps=1, warmup=0)
         key = "f64" if dtype == torch.float64 else "f32"
-        out[key] = dict(frac=frac, dx_same=dx_same, dx_all=dx_all, ms=ms,
+        out[key] = _tron_vs_plain("phase 2: tron_alm_branch", kernel, plain,
+                                  act, dtype, dev)
+    return out
+
+
+def _mp_model(dev, data, loads, T: int, dtype, par):
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    return MP.build_model(data, par, *loads, end_period=T, dtype=dtype,
+                          device=dev)
+
+
+def phase2_branch_periods(dev, data, loads, T: int, on_card: bool) -> dict:
+    """Phase 2's check on the multi-period path's branch batch: the
+    T * nline lines over the tiled grid, as ``update_x`` builds it."""
+    from exaadmm_tpu_torch.models.acopf import branch
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.ops import tron_cuda
+    from exaadmm_tpu_torch.utils.environment import Parameters
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        par = Parameters(verbose=0, tron_step_cap=50)
+        model = _mp_model(dev, data, loads, T, dtype, par)
+        ac = MP.init_solution(model, 4e2, 4e4).acopf
+        # perturb the prox targets so the lanes (and periods) differ
+        rng = np.random.default_rng(0)
+        noise = torch.as_tensor(rng.normal(0, 0.05, tuple(ac.v.line.shape)))
+        ac = ac.replace(v=ac.v.replace(
+            line=ac.v.line + noise.to(device=dev, dtype=dtype)))
+        x0, xl, xu, params, lam0, mu0, act = branch.branch_inputs(
+            model.flat_lines(ac), model.grid_T, par, 1)
+        opts = branch.branch_tolerances(par, dtype)
+
+        def kernel():
+            return tron_cuda.tron_alm_branch(x0, xl, xu, params, lam0, mu0,
+                                             active0=act, **opts)
+
+        def plain():
+            return tron_cuda.tron_alm_branch_plain(
+                x0, xl, xu, params, lam0, mu0, active0=act, **opts)
+
+        key = "f64" if dtype == torch.float64 else "f32"
+        out[key] = _tron_vs_plain(
+            f"phase 2: tron_alm_branch x {T} periods", kernel, plain, act,
+            dtype, dev)
+    return out
+
+
+def phase1b_bus_periods(dev, data, loads, T: int, on_card: bool) -> dict:
+    from exaadmm_tpu_torch.models.acopf import kernels
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.ops import bus_cuda
+    from exaadmm_tpu_torch.utils.environment import Parameters
+
+    out = {}
+    for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-6)):
+        model = _mp_model(dev, data, loads, T, dtype, Parameters(verbose=0))
+        gd = model.grid
+        sol = MP.init_solution(model, 4e2, 4e4)
+        ac = sol.acopf
+        # periods that differ: the line and generator values perturbed per
+        # period; the generator values blend in the next period's ramp terms
+        # as the bus update does
+        rng = np.random.default_rng(1)
+
+        def perturb(a):
+            return a + torch.as_tensor(rng.normal(0, 0.05, tuple(
+                a.shape))).to(device=dev, dtype=dtype)
+
+        u = ac.u.replace(line=perturb(ac.v.line), gen=perturb(ac.u.gen))
+        arcs = kernels.bus_arc_values(u, ac.z, ac.l, ac.rho, gd)
+        gens = kernels.bus_gen_values(u, ac.z, ac.l, ac.rho,
+                                      model.next_ramp(sol.ramp))
+        rel, worst_abs = 0.0, 0.0
+        for what, vals, ids, ptr, idx in (
+                ("arcs", arcs, gd.arc_bus, gd.arc_ptr, gd.arc_idx),
+                ("gens", gens, gd.gen_bus, gd.gen_ptr, gd.gen_idx)):
+            folded = bus_cuda.bus_scatter_periods(vals, ids, ptr, idx)
+            single = torch.stack([bus_cuda.bus_scatter(vals[t], ids, ptr,
+                                                       idx)
+                                  for t in range(T)])
+            ref = torch.stack([bus_cuda.bus_scatter_plain(vals[t], ids,
+                                                          gd.nbus)
+                               for t in range(T)])
+            _check(bool(torch.equal(folded, single)),
+                   f"bus_scatter_periods {what}: differs from single-period "
+                   f"calls")
+            diff = (folded - ref).abs()
+            scale = ref.abs().amax(dim=1).clamp_min(torch.finfo(dtype).tiny)
+            rel = max(rel, float((diff.amax(dim=1) / scale).max()))
+            worst_abs = max(worst_abs, float(diff.max()))
+        _check(rel <= tol, f"bus_scatter_periods {dtype}: rel diff "
+                           f"{rel:.3e} > {tol:.0e}")
+        ms = time_ms(lambda: bus_cuda.bus_scatter_periods(
+            arcs, gd.arc_bus, gd.arc_ptr, gd.arc_idx), dev, reps=100)
+        loop_ms = time_ms(lambda: [bus_cuda.bus_scatter(
+            arcs[t], gd.arc_bus, gd.arc_ptr, gd.arc_idx) for t in range(T)],
+            dev, reps=100)
+        folded_vals = arcs.permute(1, 0, 2).reshape(arcs.shape[1], -1)
+        plain_ms = time_ms(lambda: bus_cuda.bus_scatter_plain(
+            folded_vals, gd.arc_bus, gd.nbus), dev, reps=100)
+        key = "f64" if dtype == torch.float64 else "f32"
+        out[key] = dict(rel=rel, abs=worst_abs, ms=ms, loop_ms=loop_ms,
                         plain_ms=plain_ms)
-        print(f"phase 2: tron_alm_branch {key} B={x0.shape[1]} step_cap=50: "
-              f"{int((~same).sum())} of {same.size} lanes differ in "
-              f"minor/alm iterations ({frac:.4%} agree), max |dx| agreeing "
-              f"{dx_same:.3e}, all {dx_all:.3e}; minor iters mean "
-              f"{mk.mean():.2f} max {mk.max()}; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.1f} ms")
+        print(f"phase 1b: bus_scatter_periods {key} {T} periods, arcs "
+              f"{tuple(arcs.shape)} and gens {tuple(gens.shape)} -> "
+              f"{gd.nbus} buses: both bit-identical to "
+              f"{T} single-period calls, max rel diff to index_add_ "
+              f"{rel:.3e} (tol {tol:.0e}); arcs folded {ms:.4f} ms, {T} "
+              f"calls {loop_ms:.4f} ms, index_add_ on the folded rows "
+              f"{plain_ms:.4f} ms")
+    return out
+
+
+def phase2b_ramp(dev, data, loads, T: int, on_card: bool) -> dict:
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.models.mpacopf import ramp
+    from exaadmm_tpu_torch.ops import tron_cuda
+    from exaadmm_tpu_torch.utils.environment import Parameters
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        par = Parameters(verbose=0, tron_step_cap=50)
+        model = _mp_model(dev, data, loads, T, dtype, par)
+        sol = MP.init_solution(model, 4e2, 4e4)
+        # perturb the generator prox targets so the lanes spread
+        rng = np.random.default_rng(0)
+        v = sol.acopf.v
+        noise = torch.as_tensor(rng.normal(0, 0.05, tuple(v.gen.shape)))
+        sol = sol.replace(acopf=sol.acopf.replace(v=v.replace(
+            gen=v.gen + noise.to(device=dev, dtype=dtype))))
+        x0, xl, xu, params, lam0, mu0 = ramp.ramp_inputs(sol, model, 1)
+        opts = ramp.ramp_tolerances(par, dtype)
+        act = torch.ones(x0.shape[1], dtype=torch.bool, device=dev)
+
+        def kernel():
+            return tron_cuda.tron_alm_ramp(x0, xl, xu, params, lam0, mu0,
+                                           **opts)
+
+        def plain():
+            return tron_cuda.tron_alm_ramp_plain(x0, xl, xu, params, lam0,
+                                                 mu0, **opts)
+
+        key = "f64" if dtype == torch.float64 else "f32"
+        out[key] = _tron_vs_plain("phase 2b: tron_alm_ramp", kernel, plain,
+                                  act, dtype, dev)
     return out
 
 
@@ -266,7 +454,7 @@ def phase4_main(dev, data, on_card: bool) -> dict:
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
-    tron_cuda.launches = bus_cuda.launches = 0
+    tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
     t0 = time.perf_counter()
     res = E.solve_acopf(data.case, data=data, rho_pq=3e3, rho_va=3e5,
                         outer_iterlim=3, inner_iterlim=100, outer_eps=0.0,
@@ -274,13 +462,16 @@ def phase4_main(dev, data, on_card: bool) -> dict:
     _sync(dev)
     secs = time.perf_counter() - t0
     launches = {"tron_alm_branch": tron_cuda.launches,
+                "tron_alm_ramp": tron_cuda.ramp_launches,
                 "bus_scatter": bus_cuda.launches}
     info = res.info
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
-    rate = info.cumul / secs
+    rate = info.cumul / info.time_overall
     print(f"phase 4: {data.case} ({data.nbus} buses, {data.nline} lines, "
-          f"{data.ngen} gens) fp64: {info.outer} outer, {info.cumul} inner "
-          f"in {secs:.3f} s = {rate:.2f} inner it/s; mismatch "
+          f"{data.ngen} gens) fp64: {info.outer} outer, {info.cumul} inner; "
+          f"ADMM loop {info.time_overall:.3f} s = {rate:.2f} inner it/s, "
+          f"whole call with setup {secs:.3f} s = {info.cumul / secs:.2f} "
+          f"inner it/s; mismatch "
           f"{info.mismatch!r} primres {info.primres!r} obj {info.objval!r}; "
           f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
     for name in ("mismatch", "primres", "dualres", "objval", "norm_z_curr"):
@@ -289,7 +480,8 @@ def phase4_main(dev, data, on_card: bool) -> dict:
     _check(bool(torch.isfinite(res.solution.u.line).all()),
            "main path: u not finite")
     if on_card:
-        _check(launches["tron_alm_branch"] == info.cumul,
+        _check(launches["tron_alm_branch"] == info.cumul
+               and launches["tron_alm_ramp"] == 0,
                f"main path: TRON launches {launches}")
         _check(launches["bus_scatter"] == 2 * info.cumul,
                f"main path: bus launches {launches}")
@@ -297,17 +489,113 @@ def phase4_main(dev, data, on_card: bool) -> dict:
                 mismatch=info.mismatch, peak=peak)
 
 
-def profile_main(dev, data, warmup: int = 5, iters: int = 20) -> dict:
-    """Where an inner iteration's time goes on the main path (synthetic 9241
-    buses, fp64, rho (3e3, 3e5), from the flat start): host time per hook
-    with a synchronize after each hook; the wall time per iteration without
-    them; and, from torch.profiler over the same unsynchronized iterations,
-    the device time by kernel and the device's idle share."""
-    from exaadmm_tpu_torch.models.acopf import model as M
-    from exaadmm_tpu_torch.utils.environment import Parameters
+def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
-    model = M.build_model(data, Parameters(verbose=0), device=dev)
-    state = {"sol": M.init_solution(model, 3e3, 3e5), "inner": 0}
+    tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = E.solve_mpacopf(CASE9, DEMAND9, start_period=1, end_period=3,
+                          rho_pq=4e2, rho_va=4e4, outer_iterlim=30,
+                          outer_eps=2e-4, warm_start=False, verbose=0,
+                          device=dev)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    info = res.info
+    rel = abs(info.objval - MP_PIN_OBJ) / MP_PIN_OBJ
+    print(f"phase 3b: case9 x 3 periods {info.status} outer {info.outer} "
+          f"(pin {MP_PIN_OUTER}) cumul {info.cumul} (pin {MP_PIN_CUMUL}) obj "
+          f"{info.objval!r} (rel diff {rel:.2e}) err_ramp {res.err_ramp:.3e} "
+          f"in {secs:.2f} s; launches branch {tron_cuda.launches} ramp "
+          f"{tron_cuda.ramp_launches} bus {bus_cuda.launches}")
+    _check(info.status == "Solved", f"case9 mp: status {info.status}")
+    _check(abs(info.outer - MP_PIN_OUTER) <= 1, f"case9 mp: outer {info.outer}")
+    _check(abs(info.cumul - MP_PIN_CUMUL) <= 0.02 * MP_PIN_CUMUL,
+           f"case9 mp: cumul {info.cumul}")
+    _check(rel <= 1e-6, f"case9 mp: obj {info.objval}")
+    _check(res.err_ramp <= 1e-3, f"case9 mp: err_ramp {res.err_ramp}")
+    if on_card:
+        _check(tron_cuda.launches == info.cumul
+               and tron_cuda.ramp_launches == info.cumul,
+               f"case9 mp: {tron_cuda.launches} branch and "
+               f"{tron_cuda.ramp_launches} ramp launches for {info.cumul} "
+               f"inner iterations")
+        _check(bus_cuda.launches == 2 * info.cumul,
+               f"case9 mp: {bus_cuda.launches} bus launches")
+
+    # one period: no ramp batch, so no ramp launch
+    tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
+    one = E.solve_mpacopf(CASE9, DEMAND9, end_period=1, outer_iterlim=1,
+                          inner_iterlim=5, warm_start=False, verbose=0,
+                          device=dev)
+    _sync(dev)
+    print(f"phase 3b: case9 x 1 period, {one.info.cumul} inner: launches "
+          f"branch {tron_cuda.launches} ramp {tron_cuda.ramp_launches} bus "
+          f"{bus_cuda.launches}")
+    _check(bool(torch.isfinite(one.solution.acopf.u.gen).all()),
+           "case9 x 1 period: u not finite")
+    if on_card:
+        _check(tron_cuda.ramp_launches == 0
+               and tron_cuda.launches == one.info.cumul,
+               f"case9 x 1 period: {tron_cuda.launches} branch and "
+               f"{tron_cuda.ramp_launches} ramp launches for "
+               f"{one.info.cumul} inner iterations")
+    return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
+                err_ramp=res.err_ramp, seconds=secs)
+
+
+def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = E.solve_mpacopf(data.case, data=data, loads=loads, end_period=T,
+                          rho_pq=4e2, rho_va=4e4, outer_iterlim=3,
+                          inner_iterlim=50, outer_eps=0.0, warm_start=False,
+                          verbose=0, device=dev)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches = {"tron_alm_branch": tron_cuda.launches,
+                "tron_alm_ramp": tron_cuda.ramp_launches,
+                "bus_scatter": bus_cuda.launches}
+    info = res.info
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    rate = info.cumul / info.time_overall
+    print(f"phase 5: {data.case} ({data.nbus} buses, {data.nline} lines, "
+          f"{data.ngen} gens) x {T} periods fp64: {info.outer} outer, "
+          f"{info.cumul} inner; ADMM loop {info.time_overall:.3f} s = "
+          f"{rate:.2f} inner it/s, whole call with setup {secs:.3f} s = "
+          f"{info.cumul / secs:.2f} inner it/s; mismatch {info.mismatch!r} primres {info.primres!r} obj "
+          f"{info.objval!r} err_ramp {res.err_ramp!r}; peak device memory "
+          f"{peak / 2**20:.1f} MiB; launches {launches}")
+    for name in ("mismatch", "primres", "dualres", "objval", "norm_z_curr"):
+        _check(bool(np.isfinite(getattr(info, name))),
+               f"multi-period path: {name} not finite")
+    _check(bool(np.isfinite(res.err_ramp)), "multi-period path: err_ramp")
+    _check(bool(torch.isfinite(res.solution.acopf.u.line).all()),
+           "multi-period path: u not finite")
+    if on_card:
+        _check(launches["tron_alm_branch"] == info.cumul
+               and launches["tron_alm_ramp"] == info.cumul,
+               f"multi-period path: TRON launches {launches}")
+        _check(launches["bus_scatter"] == 2 * info.cumul,
+               f"multi-period path: bus launches {launches}")
+    return dict(launches=launches, rate=rate, seconds=secs,
+                mismatch=info.mismatch, err_ramp=res.err_ramp, peak=peak)
+
+
+def profile_main(dev, label: str, model, sol, warmup: int = 5,
+                 iters: int = 20) -> dict:
+    """Where an inner iteration's time goes for ``model`` from ``sol``: host
+    time per hook with a synchronize after each hook; the wall time per
+    iteration without them; and, from torch.profiler over the same
+    unsynchronized iterations, the device time by kernel and the device's
+    idle share."""
+    state = {"sol": sol, "inner": 0}
     beta = 1e3
     hooks = (
         ("x", lambda s: model.update_x(model.inner_prestep(s),
@@ -360,15 +648,18 @@ def profile_main(dev, data, warmup: int = 5, iters: int = 20) -> dict:
             kernels[e.key] = (t / 1e3 / iters, e.count / iters)
     busy_ms = sum(t for t, _ in kernels.values())
     launches = sum(n for _, n in kernels.values())
-    print(f"profile: per inner iteration {wall_ms:.3f} ms wall; with a "
-          f"synchronize after each hook: "
+    print(f"profile {label}: per inner iteration {wall_ms:.3f} ms wall; with "
+          f"a synchronize after each hook: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in hook_ms.items()))
-    print(f"profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+    print(f"profile {label}: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
           f"(idle share {1 - busy_ms / wall_ms:.3f}), {launches:.1f} device "
           f"activities per iteration")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    for name, (t, n) in top:
-        print(f"profile:   {t:9.4f} ms x{n:5.1f}  {name[:100]}")
+    # the 12 largest, then the port's own kernels wherever they rank
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    own = [kv for kv in ranked[12:]
+           if "tron_alm" in kv[0] or "bus_scatter" in kv[0]]
+    for name, (t, n) in ranked[:12] + own:
+        print(f"profile {label}:   {t:9.4f} ms x{n:5.1f}  {name[:100]}")
     return dict(wall_ms=wall_ms, hook_ms=hook_ms, busy_ms=busy_ms,
                 launches=launches)
 
@@ -393,25 +684,40 @@ def solve_to_tolerance(dev, data) -> dict:
     return dict(status=info.status, seconds=secs, cumul=info.cumul)
 
 
-def run(device, big_data) -> dict:
-    """All phases on ``device``; ``big_data`` is the full-size grid. On a
-    CPU device (a rehearsal) the wrappers run their plain versions, so the
-    kernel comparisons and launch counts are not meaningful there."""
+def run(device, big_data, mp_data, mp_loads, T: int) -> dict:
+    """All phases on ``device``; ``big_data`` is the single-period grid,
+    ``mp_data`` with ``mp_loads`` ((Pd, Qd), (nbus, T) each) the
+    multi-period one. On a CPU device (a rehearsal) the wrappers run their
+    plain versions, so the kernel comparisons and launch counts are not
+    meaningful there."""
     dev = torch.device(device)
     on_card = dev.type == "cuda"
+    mp = (mp_data, mp_loads, T, on_card)
     results = {"device": phase0_device(dev, on_card)}
     results["bus"] = phase1_bus(dev, big_data, on_card)
+    results["bus_periods"] = phase1b_bus_periods(dev, *mp)
     results["tron"] = phase2_tron(dev, big_data, on_card)
+    results["tron_mp"] = phase2_branch_periods(dev, *mp)
+    results["ramp"] = phase2b_ramp(dev, *mp)
     results["case9"] = phase3_case9(dev, on_card)
+    results["case9_mp"] = phase3b_case9_mpacopf(dev, on_card)
     results["main"] = phase4_main(dev, big_data, on_card)
+    results["main_mp"] = phase5_mpacopf(dev, *mp)
     kern = []
-    for name, key in (("tron_alm_branch", "tron"), ("bus_scatter", "bus")):
+    for name, key in (("tron_alm_branch", "tron"), ("tron_alm_ramp", "ramp"),
+                      ("bus_scatter", "bus")):
         r = results[key]["f64"]
-        err = r["dx_all"] if key == "tron" else r["abs"]
+        if key == "bus":
+            err = max(r["abs"], results["bus_periods"]["f64"]["abs"])
+        elif key == "tron":
+            err = max(r["dx_all"], results["tron_mp"]["f64"]["dx_all"])
+        else:
+            err = r["dx_all"]
         kern.append({"name": name, "route": "cuda",
                      "source": KERNEL_SOURCES[name][0],
                      "replaces": KERNEL_SOURCES[name][1],
-                     "launches": results["main"]["launches"][name],
+                     "launches": (results["main"]["launches"][name]
+                                  + results["main_mp"]["launches"][name]),
                      "max_abs_err": err, "ms": r["ms"],
                      "plain_ms": r["plain_ms"]})
     results["kernels"] = kern
@@ -423,15 +729,27 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from exaadmm_tpu_torch.utils.synthetic import synthetic_case
+    from exaadmm_tpu_torch.models.acopf import model as M
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.utils.environment import Parameters
+    from exaadmm_tpu_torch.utils.synthetic import (synthetic_case,
+                                                   synthetic_load_profile)
 
     t0 = time.perf_counter()
+    dev = torch.device("cuda")
     big = synthetic_case(9241, seed=0, line_ratio=1.7)
-    results = run("cuda", big)
+    T = 8
+    mp_data = synthetic_case(2869, seed=0, line_ratio=1.7)
+    mp_loads = synthetic_load_profile(mp_data, T, seed=0)
+    results = run("cuda", big, mp_data, mp_loads, T)
     if "--profile" in sys.argv[1:]:
-        profile_main(torch.device("cuda"), big)
+        model = M.build_model(big, Parameters(verbose=0), device=dev)
+        profile_main(dev, "phase 4", model, M.init_solution(model, 3e3, 3e5))
+        model = _mp_model(dev, mp_data, mp_loads, T, torch.float64,
+                          Parameters(verbose=0))
+        profile_main(dev, "phase 5", model, MP.init_solution(model, 4e2, 4e4))
     if "--solve" in sys.argv[1:]:
-        solve_to_tolerance(torch.device("cuda"), big)
+        solve_to_tolerance(dev, big)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": results["kernels"]}))
     print(json.dumps({"ok": True, "device": {

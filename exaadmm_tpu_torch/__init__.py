@@ -11,13 +11,20 @@ Nothing here is trained, so there is no ``nn.Module`` and no
 ``csrc/`` at first use on a CUDA tensor; on a CPU tensor each wrapper runs
 its plain PyTorch version:
 
-- ``ops/tron_cuda.py``: the branch TRON/ALM batch (``csrc/tron_alm_branch.cu``),
+- ``ops/tron_cuda.py``: the TRON/ALM batches, one body
+  (``csrc/tron_alm.cuh``) for the branch instance
+  (``csrc/tron_alm_branch.cu``) and the multi-period ramp instance
+  (``csrc/tron_alm_ramp.cu``),
 - ``ops/bus_cuda.py``: the deterministic bus scatter (``csrc/bus_scatter.cu``).
+
+Entry points: ``solve_acopf`` (single period) and ``solve_mpacopf``
+(periods coupled by generator ramping).
 
 This package imports neither jax nor ``exaadmm_tpu``.
 """
 
 from .interface.solve_acopf import SolveResult, solve_acopf
+from .interface.solve_mpacopf import MpacopfResult, solve_mpacopf
 from .utils.environment import Blocks, Parameters, Solution
 from .utils.opfdata import opf_loaddata
 
@@ -26,6 +33,8 @@ __version__ = "0.1.0"
 __all__ = [
     "solve_acopf",
     "SolveResult",
+    "solve_mpacopf",
+    "MpacopfResult",
     "Parameters",
     "Solution",
     "Blocks",

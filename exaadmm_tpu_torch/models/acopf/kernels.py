@@ -44,52 +44,79 @@ def generator_update(
 
 def bus_arc_values(u: Blocks, z: Blocks, l: Blocks, rho: Blocks,
                    gd: GridData) -> torch.Tensor:
-    """The (2 * nline_padded, 8) per-arc terms that the bus update sums into
-    each bus: the from-side rows, then the to-side rows, zero on padding."""
+    """The (..., 2 * nline_padded, 8) per-arc terms that the bus update sums
+    into each bus: the from-side rows, then the to-side rows, zero on
+    padding. Leading (period) axes pass through."""
     uL, zL, lL, rL = u.line, z.line, l.line, rho.line
     m = gd.line_mask
     # lam + rho*(u + z) for the bus-owned rows (wi, wj, thi, thj)
     uz = uL + zL
-    acc_w_fr = (lL[:, 4] + rL[:, 4] * uz[:, 4]) * m
-    acc_w_to = (lL[:, 5] + rL[:, 5] * uz[:, 5]) * m
-    acc_t_fr = (lL[:, 6] + rL[:, 6] * uz[:, 6]) * m
-    acc_t_to = (lL[:, 7] + rL[:, 7] * uz[:, 7]) * m
+    acc_w_fr = (lL[..., 4] + rL[..., 4] * uz[..., 4]) * m
+    acc_w_to = (lL[..., 5] + rL[..., 5] * uz[..., 5]) * m
+    acc_t_fr = (lL[..., 6] + rL[..., 6] * uz[..., 6]) * m
+    acc_t_to = (lL[..., 7] + rL[..., 7] * uz[..., 7]) * m
     return torch.cat([
         torch.stack([
-            acc_w_fr, acc_t_fr, rL[:, 4] * m, rL[:, 6] * m,
-            m / rL[:, 0], m / rL[:, 1],
-            (uz[:, 0] + lL[:, 0] / rL[:, 0]) * m,
-            (uz[:, 1] + lL[:, 1] / rL[:, 1]) * m,
+            acc_w_fr, acc_t_fr, rL[..., 4] * m, rL[..., 6] * m,
+            m / rL[..., 0], m / rL[..., 1],
+            (uz[..., 0] + lL[..., 0] / rL[..., 0]) * m,
+            (uz[..., 1] + lL[..., 1] / rL[..., 1]) * m,
         ], dim=-1),
         torch.stack([
-            acc_w_to, acc_t_to, rL[:, 5] * m, rL[:, 7] * m,
-            m / rL[:, 2], m / rL[:, 3],
-            (uz[:, 2] + lL[:, 2] / rL[:, 2]) * m,
-            (uz[:, 3] + lL[:, 3] / rL[:, 3]) * m,
+            acc_w_to, acc_t_to, rL[..., 5] * m, rL[..., 7] * m,
+            m / rL[..., 2], m / rL[..., 3],
+            (uz[..., 2] + lL[..., 2] / rL[..., 2]) * m,
+            (uz[..., 3] + lL[..., 3] / rL[..., 3]) * m,
         ], dim=-1),
-    ])
+    ], dim=-2)
 
 
-def bus_gen_values(u: Blocks, z: Blocks, l: Blocks,
-                   rho: Blocks) -> torch.Tensor:
-    """The (ngen, 4) per-generator terms that the bus update sums into each
-    bus: p and q targets and the two inverse penalties."""
-    uzG = u.gen + z.gen
-    lG, rG = l.gen, rho.gen
-    gen_p_den = rG[:, 0]
-    gen_p_num = lG[:, 0] + rG[:, 0] * uzG[:, 0]
-    return torch.stack([gen_p_num / gen_p_den, uzG[:, 1] + lG[:, 1] / rG[:, 1],
-                        1.0 / gen_p_den, 1.0 / rG[:, 1]], dim=-1)
+def _gen_p(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, ramp=None):
+    """Numerator and denominator of the pg rows' consensus target. With
+    ``ramp`` (the next period's ramp coupling ``u/z/l/rho``, (..., ngen)
+    each) they blend its terms in (mpacopf_bus_kernel_cpu.jl:56-64):
+    (l + rho (u + z) + r_l + r_rho (r_u + r_z)) / (rho + r_rho)."""
+    num = l.gen[..., 0] + rho.gen[..., 0] * (u.gen[..., 0] + z.gen[..., 0])
+    den = rho.gen[..., 0]
+    if ramp is not None:
+        num = num + ramp["l"] + ramp["rho"] * (ramp["u"] + ramp["z"])
+        den = den + ramp["rho"]
+    return num, den
+
+
+def bus_gen_values(u: Blocks, z: Blocks, l: Blocks, rho: Blocks,
+                   ramp=None) -> torch.Tensor:
+    """The (..., ngen, 4) per-generator terms that the bus update sums into
+    each bus: p and q targets and the two inverse penalties."""
+    gen_p_num, gen_p_den = _gen_p(u, z, l, rho, ramp)
+    uzq = u.gen[..., 1] + z.gen[..., 1]
+    lq, rq = l.gen[..., 1], rho.gen[..., 1]
+    return torch.stack([gen_p_num / gen_p_den, uzq + lq / rq,
+                        1.0 / gen_p_den, 1.0 / rq], dim=-1)
+
+
+def _sum_into_buses(vals, seg_ids, ptr, idx):
+    """Segment sums of (R, C) rows, or of (T, R, C) rows of T periods with
+    one launch for all periods."""
+    if vals.dim() == 2:
+        return bus_cuda.bus_scatter(vals, seg_ids, ptr, idx)
+    return bus_cuda.bus_scatter_periods(vals, seg_ids, ptr, idx)
 
 
 def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
-               Pd=None, Qd=None) -> Blocks:
+               Pd=None, Qd=None, ramp=None) -> Blocks:
     """Bus consensus (xbar) update; returns the new v Blocks.
 
     Per bus the optimality system for the two power-balance multipliers
     (mu1, mu2) is 2x2 linear (including shunt coupling through the shared
     w_i); solved in closed form with the reference's elimination order
     (acopf_bus_kernel_cpu.jl:85-93). Pd/Qd default to the grid loads.
+
+    Multi-period: blocks of shape (T, ...) and Pd/Qd of shape (T, nbus)
+    update all T periods at once; the grid (and so the bus CSR) is the same
+    in every period, and each bus sum is one launch for all periods.
+    ``ramp`` blends the next period's ramp coupling into the pg rows
+    (``_gen_p``); None is the single-period update.
     """
     fr, to, gb = gd.line_from, gd.line_to, gd.gen_bus
     zL, lL, rL = z.line, l.line, rho.line
@@ -101,17 +128,17 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
     if Qd is None:
         Qd = gd.Qd
 
-    agg = bus_cuda.bus_scatter(bus_arc_values(u, z, l, rho, gd), gd.arc_bus,
-                               gd.arc_ptr, gd.arc_idx)
+    agg = _sum_into_buses(bus_arc_values(u, z, l, rho, gd), gd.arc_bus,
+                          gd.arc_ptr, gd.arc_idx)
     uz = uL + zL
-    common_wi = agg[:, 0]
-    common_ti = agg[:, 1]
-    rhosum_wi = agg[:, 2]
-    rhosum_ti = agg[:, 3]
-    inv_rho_p = agg[:, 4]
-    inv_rho_q = agg[:, 5]
-    flow_rhs1 = agg[:, 6]
-    flow_rhs2 = agg[:, 7]
+    common_wi = agg[..., 0]
+    common_ti = agg[..., 1]
+    rhosum_wi = agg[..., 2]
+    rhosum_ti = agg[..., 3]
+    inv_rho_p = agg[..., 4]
+    inv_rho_q = agg[..., 5]
+    flow_rhs1 = agg[..., 6]
+    flow_rhs2 = agg[..., 7]
 
     # guard isolated buses (no incident line) against 0/0
     one = torch.ones_like(rhosum_wi)
@@ -121,11 +148,10 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
 
     # generator contributions, one scatter for the four sums
     uzG = uG + zG
-    gen_p_num = lG[:, 0] + rG[:, 0] * uzG[:, 0]
-    gen_p_den = rG[:, 0]
-    gsum = bus_cuda.bus_scatter(bus_gen_values(u, z, l, rho), gb, gd.gen_ptr,
-                                gd.gen_idx)
-    rhs1, rhs2, inv_rho_pg, inv_rho_qg = gsum.unbind(1)
+    gen_p_num, gen_p_den = _gen_p(u, z, l, rho, ramp)
+    gsum = _sum_into_buses(bus_gen_values(u, z, l, rho, ramp), gb,
+                           gd.gen_ptr, gd.gen_idx)
+    rhs1, rhs2, inv_rho_pg, inv_rho_qg = gsum.unbind(-1)
 
     rhs1 = rhs1 - Pd / gd.baseMVA
     rhs2 = rhs2 - Qd / gd.baseMVA
@@ -149,27 +175,27 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
 
     # writeback: consensus copies for every attached component
     wtm = torch.stack([wi, ti, mu1, mu2], dim=-1)
-    g_fr = wtm[fr]
-    g_to = wtm[to]
-    g_gb = wtm[gb]
+    g_fr = wtm[..., fr, :]
+    g_to = wtm[..., to, :]
+    g_gb = wtm[..., gb, :]
 
     v_gen = torch.stack(
         [
-            (gen_p_num - g_gb[:, 2]) / gen_p_den,
-            uzG[:, 1] + (lG[:, 1] - g_gb[:, 3]) / rG[:, 1],
+            (gen_p_num - g_gb[..., 2]) / gen_p_den,
+            uzG[..., 1] + (lG[..., 1] - g_gb[..., 3]) / rG[..., 1],
         ],
         dim=-1,
     )
     v_line = torch.stack(
         [
-            uz[:, 0] + (lL[:, 0] + g_fr[:, 2]) / rL[:, 0],
-            uz[:, 1] + (lL[:, 1] + g_fr[:, 3]) / rL[:, 1],
-            uz[:, 2] + (lL[:, 2] + g_to[:, 2]) / rL[:, 2],
-            uz[:, 3] + (lL[:, 3] + g_to[:, 3]) / rL[:, 3],
-            g_fr[:, 0],
-            g_to[:, 0],
-            g_fr[:, 1],
-            g_to[:, 1],
+            uz[..., 0] + (lL[..., 0] + g_fr[..., 2]) / rL[..., 0],
+            uz[..., 1] + (lL[..., 1] + g_fr[..., 3]) / rL[..., 1],
+            uz[..., 2] + (lL[..., 2] + g_to[..., 2]) / rL[..., 2],
+            uz[..., 3] + (lL[..., 3] + g_to[..., 3]) / rL[..., 3],
+            g_fr[..., 0],
+            g_to[..., 0],
+            g_fr[..., 1],
+            g_to[..., 1],
         ],
         dim=-1,
     )

@@ -9,10 +9,11 @@ compiles in seconds:
 ``--fmad=false`` keeps the kernels' rounding op for op equal to the plain
 PyTorch versions they are checked against. The library lands in
 ``build/exaadmm_tpu_torch/<name>-<hash>/`` beside the package, keyed by a
-hash of the source and the flags, and is built at first use. Nothing is
-downloaded: only the sources in ``csrc/`` are compiled. ``build_logs[name]``
-keeps nvcc's ``-Xptxas -v`` report (registers, spills) and
-``build_seconds[name]`` the compile time.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, and
+is built at first use; ``build(names)`` compiles several sources at once,
+one nvcc process each. Nothing is downloaded: only the sources in ``csrc/``
+are compiled. ``build_logs[name]`` keeps nvcc's ``-Xptxas -v`` report
+(registers, spills) and ``build_seconds[name]`` the compile time.
 """
 
 from __future__ import annotations
@@ -47,33 +48,62 @@ def _nvcc() -> str:
     return found
 
 
+def _target(name: str):
+    """(source, output directory, library path) of ``csrc/<name>.cu``; the
+    directory is keyed by the source, every ``csrc/*.cuh`` header and the
+    flags."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
+    return src, out_dir, out_dir / f"lib{name}.so"
+
+
+def build(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` not built yet, one nvcc
+    process per source, all started together; raise if any fails."""
+    started = {}
+    for name in names:
+        src, out_dir, lib_path = _target(name)
+        if lib_path.is_file() or name in started:
+            continue
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}"
+        log = out_dir / f"nvcc.{os.getpid()}.log"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        started[name] = (proc, cmd, tmp, log, lib_path, time.perf_counter())
+    errors = []
+    for name, (proc, cmd, tmp, log, lib_path, t0) in started.items():
+        proc.wait()
+        # a process that ended before an earlier one counts up to that one
+        build_seconds[name] = time.perf_counter() - t0
+        build_logs[name] = log.read_text()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {name}.cu (exit "
+                          f"{proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{build_logs[name]}")
+        else:
+            os.replace(tmp, lib_path)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library,
     with ``argtypes`` set from ``signatures`` (entry point -> ctypes types;
     every entry point returns a ``cudaError_t`` as int)."""
     if name in _libs:
         return _libs[name]
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / f"{name}-{key}"
-    lib_path = out_dir / f"lib{name}.so"
-    if not lib_path.is_file():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"lib{name}.so.{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds[name] = time.perf_counter() - t0
-        build_logs[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    else:
+    _, _, lib_path = _target(name)
+    if lib_path.is_file():
         build_seconds.setdefault(name, 0.0)
         build_logs.setdefault(name, f"(cached: {lib_path})")
+    else:
+        build([name])
     lib = ctypes.CDLL(str(lib_path))
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes

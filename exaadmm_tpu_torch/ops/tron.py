@@ -166,7 +166,7 @@ def tron_alm_batched(
     max_auglag: int = 50,
     step_cap: int | None = None,
     active0: torch.Tensor | None = None,
-    alm_delta_fn: Callable,
+    alm_delta_fn: Callable | None = None,
 ) -> TronALMResult:
     """Solve B independent bound-constrained ALM problems in lockstep.
 
@@ -174,7 +174,8 @@ def tron_alm_batched(
     it gives the function values of the ratio test. ``fgh_fn`` gives the
     gradient and Hessian (its f is not used). ``alm_delta_fn(c, lam_old,
     mu_old, lam_new, mu_new, params)`` gives the exact objective change of
-    an ALM update at fixed x (the objective is affine in lam and mu).
+    an ALM update at fixed x (the objective is affine in lam and mu); with
+    None the objective is evaluated afresh at the new lam and mu.
     Lanes with ``active0`` False come back untouched.
     """
     n, B = x0.shape
@@ -372,8 +373,11 @@ def tron_alm_batched(
         tron_done = tron_done & ~restart
         tron_it = torch.where(restart, zeros_i, tron_it)
         need_init = need_init | restart
-        f = torch.where(
-            restart, f + alm_delta_fn(c, lam, mu, lam_new, mu_new, params), f)
+        if alm_delta_fn is None:
+            f_fresh = obj_fn(x, params, lam_new, mu_new)
+        else:
+            f_fresh = f + alm_delta_fn(c, lam, mu, lam_new, mu_new, params)
+        f = torch.where(restart, f_fresh, f)
         cviol = torch.where(do_alm, cnorm, cviol)
         lam, mu = lam_new, mu_new
 

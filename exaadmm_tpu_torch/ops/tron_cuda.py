@@ -1,20 +1,27 @@
-"""The branch TRON/ALM batch: one line subproblem per lane.
+"""The TRON/ALM batches: one small subproblem per lane.
 
-Replaces ``exaadmm_tpu/ops/tron_pallas.py::tron_alm_batched_pallas`` for the
-ACOPF branch instance (n=6, ncon=2, ``branch_fgh_linelimit``,
-``branch_alm_delta``):
+Replaces ``exaadmm_tpu/ops/tron_pallas.py::tron_alm_batched_pallas`` for two
+problem instances, which share one CUDA body (``csrc/tron_alm.cuh``):
 
-- on a CUDA tensor, ``csrc/tron_alm_branch.cu`` runs one thread per line,
-  each thread the lane's own loop of the lockstep state machine;
-- on a CPU tensor, the plain version ``ops/tron.py::tron_alm_batched`` with
-  the branch functions of ``models/acopf/branch.py``.
+- the ACOPF branch (n=6, ncon=2, ``branch_fgh_linelimit``,
+  ``branch_alm_delta``): ``tron_alm_branch``, ``csrc/tron_alm_branch.cu``;
+- the multi-period ramp generator (n=3, ncon=1, ``ramp_fgh``, the objective
+  evaluated afresh after each ALM round): ``tron_alm_ramp``,
+  ``csrc/tron_alm_ramp.cu``.
 
-``launches`` counts the kernel's launches.
+On a CUDA tensor a wrapper runs its kernel, one thread per lane, each thread
+the lane's own loop of the lockstep state machine; on a CPU tensor it runs
+the plain version ``ops/tron.py::tron_alm_batched`` with the instance's
+functions; any other device raises.
+
+``launches`` counts the branch kernel's launches, ``ramp_launches`` the ramp
+kernel's.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,24 +29,35 @@ from . import _build
 from .tron import TronALMResult, tron_alm_batched
 
 launches = 0
+ramp_launches = 0
 
-_FN = {torch.float64: "tron_alm_branch_f64",
-       torch.float32: "tron_alm_branch_f32"}
-N_VAR, N_CON, N_PARAM = 6, 2, 33
 # (x0, xl, xu, params, lam0, mu0, active0, x, lam, mu, minor, alm, cviol,
 #  B, gtol, frtol, ctol, mu_max, max_minor, max_auglag, step_cap, stream)
 _SIG = ([ctypes.c_void_p] * 13 + [ctypes.c_int] + [ctypes.c_double] * 4
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
-def library():
-    """The kernel library, built from ``csrc/tron_alm_branch.cu`` at first
+class _Instance(NamedTuple):
+    name: str      # csrc/<name>.cu, entry points <name>_f64 / <name>_f32
+    n: int
+    ncon: int
+    nparam: int
+
+
+BRANCH = _Instance("tron_alm_branch", 6, 2, 33)
+RAMP = _Instance("tron_alm_ramp", 3, 1, 9)
+_SUFFIX = {torch.float64: "_f64", torch.float32: "_f32"}
+
+
+def library(inst: _Instance):
+    """The instance's kernel library, built from ``csrc/<name>.cu`` at first
     call."""
-    return _build.load("tron_alm_branch", {fn: _SIG for fn in _FN.values()})
+    return _build.load(inst.name,
+                       {inst.name + sfx: _SIG for sfx in _SUFFIX.values()})
 
 
 def pack_params(params: dict) -> torch.Tensor:
-    """The kernel's (33, B) parameter block: the 8 admittances in
+    """The branch kernel's (33, B) parameter block: the 8 admittances in
     ``branch.Y_KEYS`` order, then l (8), rho (8), t (8) and scale."""
     from ..models.acopf.branch import Y_KEYS
     return torch.cat([torch.stack([params[k] for k in Y_KEYS]),
@@ -47,9 +65,16 @@ def pack_params(params: dict) -> torch.Tensor:
                       params["scale"][None]]).contiguous()
 
 
+def pack_ramp_params(params: dict) -> torch.Tensor:
+    """The ramp kernel's (9, B) parameter block, rows in
+    ``ramp.PARAM_KEYS`` order."""
+    from ..models.mpacopf.ramp import PARAM_KEYS
+    return torch.stack([params[k] for k in PARAM_KEYS]).contiguous()
+
+
 def tron_alm_branch_plain(x0, xl, xu, params, lam0, mu0, *, active0=None,
                           **opts) -> TronALMResult:
-    """The plain PyTorch version, on any device."""
+    """The plain PyTorch version of the branch batch, on any device."""
     from ..models.acopf.branch import (branch_alm_delta, branch_cons_linelimit,
                                        branch_fgh_linelimit,
                                        branch_obj_linelimit)
@@ -57,6 +82,62 @@ def tron_alm_branch_plain(x0, xl, xu, params, lam0, mu0, *, active0=None,
         branch_obj_linelimit, branch_cons_linelimit, branch_fgh_linelimit,
         x0, xl, xu, params, lam0, mu0, active0=active0,
         alm_delta_fn=branch_alm_delta, **opts)
+
+
+def tron_alm_ramp_plain(x0, xl, xu, params, lam0, mu0, *, active0=None,
+                        **opts) -> TronALMResult:
+    """The plain PyTorch version of the ramp batch, on any device."""
+    from ..models.mpacopf.ramp import ramp_cons, ramp_fgh, ramp_obj
+    return tron_alm_batched(ramp_obj, ramp_cons, ramp_fgh, x0, xl, xu,
+                            params, lam0, mu0, active0=active0,
+                            alm_delta_fn=None, **opts)
+
+
+def _launch(inst: _Instance, x0, xl, xu, P, lam0, mu0, active0, gtol, frtol,
+            ctol, mu_max, max_minor, max_auglag, step_cap) -> TronALMResult:
+    """Check the inputs of a CUDA batch and launch the instance's kernel."""
+    dtype = x0.dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{inst.name}: dtype {dtype} not supported")
+    B = x0.shape[1]
+    if active0 is None:
+        active0 = torch.ones(B, dtype=torch.bool, device=x0.device)
+    inputs = (("x0", x0, (inst.n, B)), ("xl", xl, (inst.n, B)),
+              ("xu", xu, (inst.n, B)), ("params", P, (inst.nparam, B)),
+              ("lam0", lam0, (inst.ncon, B)), ("mu0", mu0, (B,)))
+    for name, t, shape in inputs:
+        if (t.device != x0.device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{inst.name}: {name} must be a contiguous {dtype} "
+                f"tensor of shape {shape} on {x0.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    act = active0.to(torch.uint8).contiguous()
+    if act.device != x0.device or tuple(act.shape) != (B,):
+        raise ValueError(f"{inst.name}: active0 must be (B,) on the device")
+
+    x = torch.empty_like(x0)
+    lam = torch.empty_like(lam0)
+    mu = torch.empty_like(mu0)
+    minor = torch.empty(B, dtype=torch.int32, device=x0.device)
+    alm = torch.empty(B, dtype=torch.int32, device=x0.device)
+    cviol = torch.empty_like(mu0)
+    cap = max_minor * max_auglag if step_cap is None else step_cap
+
+    lib = library(inst)
+    # the temporaries (P, act) may be freed on return while the kernel still
+    # reads them: the caching allocator reuses their memory only for work
+    # queued later on the same stream, so that is safe
+    ptrs = [t.data_ptr() for t in
+            (x0, xl, xu, P, lam0, mu0, act, x, lam, mu, minor, alm, cviol)]
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, inst.name + _SUFFIX[dtype])(
+            *ptrs, B, gtol, frtol, ctol, mu_max, max_minor, max_auglag, cap,
+            stream)
+    _build.check(lib, err, inst.name)
+    return TronALMResult(x=x, lam=lam, mu=mu, minor_iters=minor,
+                         alm_iters=alm, cviol=cviol)
 
 
 def tron_alm_branch(x0, xl, xu, params, lam0, mu0, *, gtol: float,
@@ -73,48 +154,31 @@ def tron_alm_branch(x0, xl, xu, params, lam0, mu0, *, gtol: float,
                                      active0=active0, **opts)
     if x0.device.type != "cuda":
         raise ValueError(f"tron_alm_branch: unsupported device {x0.device}")
-    dtype = x0.dtype
-    if dtype not in _FN:
-        raise TypeError(f"tron_alm_branch: dtype {dtype} not supported")
-    B = x0.shape[1]
-    if active0 is None:
-        active0 = torch.ones(B, dtype=torch.bool, device=x0.device)
-    P = pack_params(params)
-    inputs = (("x0", x0, (N_VAR, B)), ("xl", xl, (N_VAR, B)),
-              ("xu", xu, (N_VAR, B)), ("params", P, (N_PARAM, B)),
-              ("lam0", lam0, (N_CON, B)), ("mu0", mu0, (B,)))
-    for name, t, shape in inputs:
-        if (t.device != x0.device or t.dtype != dtype
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"tron_alm_branch: {name} must be a contiguous {dtype} "
-                f"tensor of shape {shape} on {x0.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-    act = active0.to(torch.uint8).contiguous()
-    if act.device != x0.device or tuple(act.shape) != (B,):
-        raise ValueError("tron_alm_branch: active0 must be (B,) on the device")
-
-    x = torch.empty_like(x0)
-    lam = torch.empty_like(lam0)
-    mu = torch.empty_like(mu0)
-    minor = torch.empty(B, dtype=torch.int32, device=x0.device)
-    alm = torch.empty(B, dtype=torch.int32, device=x0.device)
-    cviol = torch.empty_like(mu0)
-    cap = max_minor * max_auglag if step_cap is None else step_cap
-
+    res = _launch(BRANCH, x0, xl, xu, pack_params(params), lam0, mu0,
+                  active0, **opts)
     global launches
-    lib = library()
-    # the temporaries (P, act) may be freed on return while the kernel still
-    # reads them: the caching allocator reuses their memory only for work
-    # queued later on the same stream, so that is safe
-    ptrs = [t.data_ptr() for t in
-            (x0, xl, xu, P, lam0, mu0, act, x, lam, mu, minor, alm, cviol)]
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _FN[dtype])(
-            *ptrs, B, gtol, frtol, ctol, mu_max, max_minor, max_auglag, cap,
-            stream)
-    _build.check(lib, err, "tron_alm_branch")
-    launches += 1
-    return TronALMResult(x=x, lam=lam, mu=mu, minor_iters=minor,
-                         alm_iters=alm, cviol=cviol)
+    if x0.shape[1] > 0:   # an empty batch launches no kernel
+        launches += 1
+    return res
+
+
+def tron_alm_ramp(x0, xl, xu, params, lam0, mu0, *, gtol: float,
+                  frtol: float, ctol: float, mu_max: float, max_minor: int,
+                  max_auglag: int, step_cap: int | None = None,
+                  active0: torch.Tensor | None = None) -> TronALMResult:
+    """Solve the B ramp generator subproblems; x0/xl/xu (3, B), lam0 (1, B),
+    mu0 (B,), params a dict of (B,) tensors under ``ramp.PARAM_KEYS``.
+    Lanes with ``active0`` False come back untouched."""
+    opts = dict(gtol=gtol, frtol=frtol, ctol=ctol, mu_max=mu_max,
+                max_minor=max_minor, max_auglag=max_auglag, step_cap=step_cap)
+    if x0.device.type == "cpu":
+        return tron_alm_ramp_plain(x0, xl, xu, params, lam0, mu0,
+                                   active0=active0, **opts)
+    if x0.device.type != "cuda":
+        raise ValueError(f"tron_alm_ramp: unsupported device {x0.device}")
+    res = _launch(RAMP, x0, xl, xu, pack_ramp_params(params), lam0, mu0,
+                  active0, **opts)
+    global ramp_launches
+    if x0.shape[1] > 0:   # an empty batch launches no kernel
+        ramp_launches += 1
+    return res

@@ -8,6 +8,8 @@ by those names, so a caller holding a JAX ``GridData`` or ``Solution`` (one
 - grid: ``{"nbus": int, ..., "baseMVA": float or 0-d array, "YffR": (N,), ...}``
 - solution: ``{"u": {"gen": (ngen, 2), "line": (N, 8)}, ...,
   "branch_alm": {"lam1": (N,), "lam2": (N,), "mu": (N,)}}``
+- multi-period solution: ``{"acopf": <solution dict of (T, ...) arrays>,
+  "ramp": {"u": (T, ngen), ..., "alm_xi": (T, ngen)}}``
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from .environment import SOLUTION_BLOCKS, Blocks, BranchALMState, Solution
+from .environment import (RAMP_FIELDS, SOLUTION_BLOCKS, Blocks,
+                          BranchALMState, RampState, Solution,
+                          SolutionMpacopf)
 from .grid_data import GridData, build_csr
 
 _SIZES = ("nbus", "ngen", "nline", "nline_padded")
@@ -71,6 +75,17 @@ def solution_from_numpy(d: dict, *, dtype=torch.float64,
         lam1=t(alm["lam1"]), lam2=t(alm["lam2"]), mu=t(alm["mu"])))
 
 
+def mpacopf_solution_from_numpy(d: dict, *, dtype=torch.float64,
+                                device="cpu") -> SolutionMpacopf:
+    """A port :class:`SolutionMpacopf` from the nested dicts of
+    ``mpacopf_solution_to_numpy``."""
+    ramp = {k: torch.as_tensor(np.array(d["ramp"][k], dtype=np.float64)).to(
+        device=device, dtype=dtype) for k in RAMP_FIELDS}
+    return SolutionMpacopf(
+        acopf=solution_from_numpy(d["acopf"], dtype=dtype, device=device),
+        ramp=RampState(**ramp))
+
+
 def _np(a):
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
@@ -92,3 +107,10 @@ def solution_to_numpy(sol) -> dict:
     alm = sol.branch_alm
     out["branch_alm"] = {k: _np(getattr(alm, k)) for k in ("lam1", "lam2", "mu")}
     return out
+
+
+def mpacopf_solution_to_numpy(sol) -> dict:
+    """The state of a ``SolutionMpacopf`` of either package as nested numpy
+    dicts."""
+    return {"acopf": solution_to_numpy(sol.acopf),
+            "ramp": {k: _np(getattr(sol.ramp, k)) for k in RAMP_FIELDS}}

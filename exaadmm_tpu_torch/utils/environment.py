@@ -10,6 +10,9 @@ and ``to`` moves every tensor to another device or dtype.
   ``[pij, qij, pji, qji, wi, wj, thi, thj]``,
 - ``Solution`` is the ADMM state, with the per-line ALM multipliers of the
   branch subproblems in ``BranchALMState``,
+- ``SolutionMpacopf`` is the multi-period state: a ``Solution`` whose
+  tensors have a leading period axis, and the ramp coupling in
+  ``RampState``,
 - ``IterationInformation`` holds the host-side counters and scalars.
 """
 
@@ -81,6 +84,8 @@ class AdmmEnv:
     params: Parameters
     tight_factor: float = 1.0
     use_linelimit: bool = True
+    load_specified: bool = False  # per-period loads given (multi-period)
+    horizon_length: int = 1
 
 
 @dataclasses.dataclass
@@ -159,6 +164,53 @@ class Solution(_TensorRecord):
 
 #: the Blocks fields of a Solution, in declaration order
 SOLUTION_BLOCKS = ("u", "v", "l", "rho", "z", "z_prev", "lz", "rp", "rd")
+
+
+@dataclasses.dataclass
+class RampState(_TensorRecord):
+    """Per-period ramp coupling state; every tensor (T, ngen), row 0 inert.
+
+    Mirrors the reference ``SolutionRamping`` (mpacopf_model.jl:1-38) plus
+    the per-generator ALM state the reference keeps in gen_membuf rows 7
+    (linear multiplier) and 8 (penalty).
+    """
+
+    u: torch.Tensor       # phat_{t-1}, the copy of period t-1's pg
+    l: torch.Tensor
+    rho: torch.Tensor
+    z: torch.Tensor
+    z_prev: torch.Tensor
+    lz: torch.Tensor
+    s: torch.Tensor       # ramp slack
+    alm_mu: torch.Tensor  # ALM linear multiplier
+    alm_xi: torch.Tensor  # ALM penalty
+
+    @staticmethod
+    def zeros(T: int, ngen: int, dtype=torch.float64,
+              device="cpu") -> "RampState":
+        def z():
+            return torch.zeros((T, ngen), dtype=dtype, device=device)
+        return RampState(u=z(), l=z(), rho=z(), z=z(), z_prev=z(), lz=z(),
+                         s=z(), alm_mu=z(),
+                         alm_xi=torch.full((T, ngen), 10.0, dtype=dtype,
+                                           device=device))
+
+
+#: the fields of a RampState, in declaration order
+RAMP_FIELDS = tuple(f.name for f in dataclasses.fields(RampState))
+
+
+@dataclasses.dataclass
+class SolutionMpacopf(_TensorRecord):
+    """Multi-period ADMM state: ``acopf`` holds (T, ...) tensors."""
+
+    acopf: Solution
+    ramp: RampState
+
+    @property
+    def u(self) -> Blocks:
+        """The component variables; the driver reads their dtype."""
+        return self.acopf.u
 
 
 @dataclasses.dataclass

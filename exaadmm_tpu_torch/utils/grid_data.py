@@ -201,3 +201,23 @@ def build_grid_data(
         gen_ptr=fi(gen_ptr, torch.int32),
         gen_idx=fi(gen_idx, torch.int32),
     )
+
+
+#: the per-line fields of a GridData, in declaration order
+LINE_FIELDS = ("YffR", "YffI", "YttR", "YttI", "YftR", "YftI", "YtfR", "YtfI",
+               "rate_a", "line_from", "line_to", "fr_vm_bound", "to_vm_bound",
+               "fr_va_bound", "to_va_bound", "line_mask")
+
+
+def tile_lines(gd: GridData, T: int) -> GridData:
+    """The grid with its line arrays repeated T times, for the T-period
+    branch batch (line k of period t is row t * nline_padded + k).
+
+    Counterpart of ``ModelMpacopf.grid_T`` in the JAX package. Only the line
+    arrays are tiled; the bus and generator fields and the bus CSR stay
+    single-period, so the result serves the branch batch alone."""
+    def tile(a):
+        return a.repeat((T,) + (1,) * (a.dim() - 1))
+    return dataclasses.replace(
+        gd, nline=gd.nline * T, nline_padded=gd.nline_padded * T,
+        **{k: tile(getattr(gd, k)) for k in LINE_FIELDS})

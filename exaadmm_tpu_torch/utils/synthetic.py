@@ -141,3 +141,13 @@ def synthetic_case(
         YtfR=Ytf.real.copy(), YtfI=Ytf.imag.copy(),
         rateA=rateA,
     )
+
+
+def synthetic_load_profile(data: OPFData, T: int, seed: int = 0):
+    """Per-period loads (Pd, Qd), each (nbus, T) in MW/MVAr: the base loads
+    times 1 + 0.05 N(0, 1), one factor per period from
+    ``default_rng(seed)``. This is the profile of the JAX package's
+    multi-period benchmark (``tools/model_bench.py``)."""
+    profile = 1.0 + 0.05 * np.random.default_rng(seed).standard_normal(T)
+    return (np.outer(np.asarray(data.Pd), profile),
+            np.outer(np.asarray(data.Qd), profile))

@@ -13,20 +13,29 @@ import pytest
 import torch
 
 import chip_smoke
-from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
+from exaadmm_tpu_torch.utils.opfdata import load_time_series, opf_loaddata
+
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_rehearsal_on_cpu(case9_path, capsys):
-    res = chip_smoke.run("cpu", opf_loaddata(case9_path, verbose=0))
+    data = opf_loaddata(case9_path, verbose=0)
+    loads = load_time_series(chip_smoke.DEMAND9)
+    res = chip_smoke.run("cpu", data, data, loads, 3)
     out = capsys.readouterr().out
-    for phase in range(1, 5):
+    for phase in ("1", "1b", "2", "2b", "3", "3b", "4", "5"):
         assert f"phase {phase}:" in out
+    assert "phase 2: tron_alm_branch x 3 periods" in out
+    assert "phase 3b: case9 x 1 period" in out
+    assert "gens (3, 3, 4)" in out   # folded generator values, with ramp
     assert res["case9"]["outer"] == chip_smoke.PIN_OUTER
     assert res["case9"]["cumul"] == chip_smoke.PIN_CUMUL
+    assert res["case9_mp"]["outer"] == chip_smoke.MP_PIN_OUTER
+    assert res["case9_mp"]["cumul"] == chip_smoke.MP_PIN_CUMUL
     names = [k["name"] for k in res["kernels"]]
-    assert names == ["tron_alm_branch", "bus_scatter"]
+    assert names == ["tron_alm_branch", "tron_alm_ramp", "bus_scatter"]
     for k in res["kernels"]:
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms"}

@@ -28,6 +28,8 @@ from exaadmm_tpu_torch.utils.grid_data import GridData, build_grid_data
 from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
 from exaadmm_tpu_torch.utils.synthetic import synthetic_case
 
+from .test_torch_threads import one_torch_thread  # noqa: F401
+
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "data")
 CASES = ["case9", "case118", "case9_pglib", "synth300"]

@@ -11,6 +11,8 @@ import torch
 import exaadmm_tpu_torch
 from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
+from .test_torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
@@ -35,7 +37,8 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     lines = dict(ln.split(" ", 1) for ln in out.stdout.splitlines())
     assert lines["BAD"] == "[]"
-    assert int(lines["COUNT"]) >= 15
+    # every module of the package, the multi-period ones included
+    assert int(lines["COUNT"]) >= 24
 
 
 def test_cuda_device_without_cuda_raises(case9_path):
@@ -52,14 +55,20 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         bus_cuda.bus_scatter(vals, ids, ptr, ptr)
     x = torch.zeros((6, 4), device="meta")
+    opts = dict(gtol=1e-6, frtol=1e-12, ctol=1e-6, mu_max=1e8, max_minor=200,
+                max_auglag=50)
     with pytest.raises(ValueError, match="unsupported device"):
-        tron_cuda.tron_alm_branch(x, x, x, {}, x[:2], x[0], gtol=1e-6,
-                                  frtol=1e-12, ctol=1e-6, mu_max=1e8,
-                                  max_minor=200, max_auglag=50)
+        tron_cuda.tron_alm_branch(x, x, x, {}, x[:2], x[0], **opts)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tron_cuda.tron_alm_ramp(x[:3], x[:3], x[:3], {}, x[:1], x[0], **opts)
 
 
 def test_cpu_wrappers_launch_no_kernel(case9_path):
-    bus_cuda.launches = tron_cuda.launches = 0
+    bus_cuda.launches = tron_cuda.launches = tron_cuda.ramp_launches = 0
     exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
                                   inner_iterlim=2, verbose=0)
+    exaadmm_tpu_torch.solve_mpacopf(
+        case9_path, os.path.join(ROOT, "data", "case9_demand"), end_period=2,
+        outer_iterlim=1, inner_iterlim=2, warm_start=False, verbose=0)
     assert bus_cuda.launches == 0 and tron_cuda.launches == 0
+    assert tron_cuda.ramp_launches == 0

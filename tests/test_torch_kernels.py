@@ -39,6 +39,7 @@ from exaadmm_tpu_torch.utils.grid_data import build_csr
 from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
 
 from .test_acopf_golden import U_BR, U_GEN, V_BR, V_GEN
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 BETA = 1e3
 KEYS = ("u", "v", "l", "rho", "z", "z_prev", "lz", "rp", "rd")

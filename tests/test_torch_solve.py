@@ -29,6 +29,7 @@ from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
 
 from .test_acopf_golden import U_BR, U_GEN
 from .test_solve_acopf import PIN_CUMUL, PIN_OBJ, PIN_OUTER
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 RHO_PQ, RHO_VA, BETA = 4e2, 4e4, 1e3
 
