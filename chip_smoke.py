@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile] [--solve]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or /usr/local/cuda) and
-``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the three
+``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the four
 kernels of the main paths from ``exaadmm_tpu_torch/csrc`` (one nvcc process
 per source, all at once) and runs, in order:
 
@@ -31,6 +31,12 @@ per source, all at once) and runs, in order:
    ramp batch of synthetic 2869 buses over 8 periods, at the first inner
    iteration, generator prox targets perturbed from a numpy seed, step_cap
    50, with phase 2's thresholds;
+2c. the QP-subproblem TRON/ALM kernel against its plain version on the
+   15,710-lane batch of the synthetic 9241-bus QP (linearized at the case's
+   own operating point) at the first iteration, from ``init_solution`` and
+   ``one_level_reset``, l and v of the lines perturbed by N(0, 0.05) from a
+   numpy seed, step_cap 50, with phase 2's thresholds; then the same without
+   line limits;
 3. case9 end to end through ``solve_acopf(..., device="cuda")``, fp64:
    Solved, objective and dispatch in the known bands, outer/cumul beside the
    pins 25/1087 (within 1 outer and 2 %), one TRON launch per inner
@@ -41,6 +47,12 @@ per source, all at once) and runs, in order:
    16015.6958770167, ramp violation <= 1e-3, one ramp and one branch launch
    per inner iteration; and a one-period run of the same entry point, which
    has no ramp batch and must launch no ramp kernel;
+3c. the case9 QP (linearized at the base point of
+   ``tests/qpsub_fixture.py``) through ``solve_qpsub(..., device="cuda")``,
+   fp64, rho (4e3, 4e3), scale 1e-4, outer_eps 2e-6: Solved, outer and
+   cumul within 2 % of the pin 5107, objective within 1e-6 relative of
+   -21.92744641968529, the SQP outputs' shapes and signs, one QP-subproblem
+   TRON launch and two bus launches per iteration;
 4. the single-period main path at full size: synthetic 9241 buses, fp64,
    flat start at rho (3e3, 3e5), 3 outer x 100 inner iterations: inner
    iterations per second of the ADMM loop (``info.time_overall``, after the
@@ -50,14 +62,19 @@ per source, all at once) and runs, in order:
    lines, 430 generators), 8 periods of the load profile
    ``synthetic_load_profile``, fp64, flat start at rho (4e2, 4e4), 3 outer x
    50 inner iterations with outer_eps 0: the same rates as phase 4, the
-   final mismatch, the ramp violation and the peak device memory.
+   final mismatch, the ramp violation and the peak device memory;
+6. the one-level QP-subproblem path at full width: the synthetic 9241-bus
+   QP of phase 2c through ``solve_qpsub``, fp64, rho (4e3, 4e3),
+   tron_step_cap 24, outer_eps 0, 200 iterations: iterations per second of
+   the ADMM loop and of the whole call, the final mismatch, the peak device
+   memory and the launch counts.
 
-The kernels' launch counters are zeroed just before phases 4 and 5 and read
-just after each; the ``launches`` of a kernel in the JSON line are the sum
-over those two runs.
+The kernels' launch counters are zeroed just before phases 4, 5 and 6 and
+read just after each; the ``launches`` of a kernel in the JSON line are the
+sum over those three runs.
 
-``--profile`` adds a breakdown of one inner iteration of phase 4's and of
-phase 5's configuration (host time per hook, device time by kernel, idle
+``--profile`` adds a breakdown of one iteration of phase 4's, phase 5's and
+phase 6's configuration (host time per hook, device time by kernel, idle
 share); ``--solve`` adds the time to tolerance of phase 4's configuration.
 
 Each phase prints one line of numbers; any failure raises, so the script
@@ -82,11 +99,15 @@ CASE9 = os.path.join(ROOT, "data", "case9.m")
 DEMAND9 = os.path.join(ROOT, "data", "case9_demand")
 PIN_OUTER, PIN_CUMUL = 25, 1087
 MP_PIN_OUTER, MP_PIN_CUMUL, MP_PIN_OBJ = 20, 1007, 16015.6958770167
+QP_PIN_ITERS, QP_PIN_OBJ = 5107, -21.92744641968529
+QP_ITERS = 200
 KERNEL_SOURCES = {
     "tron_alm_branch": ("exaadmm_tpu_torch/csrc/tron_alm_branch.cu",
                         "exaadmm_tpu/ops/tron_pallas.py:42"),
     "tron_alm_ramp": ("exaadmm_tpu_torch/csrc/tron_alm_ramp.cu",
                       "exaadmm_tpu/ops/tron_pallas.py:42"),
+    "tron_alm_qpsub": ("exaadmm_tpu_torch/csrc/tron_alm_qpsub.cu",
+                       "exaadmm_tpu/ops/tron_pallas.py:42"),
     "bus_scatter": ("exaadmm_tpu_torch/csrc/bus_scatter.cu",
                     "exaadmm_tpu/ops/bus_pallas.py:42"),
 }
@@ -141,6 +162,7 @@ def phase0_device(dev, on_card: bool) -> dict:
         _build.build(KERNEL_SOURCES)
         tron_cuda.library(tron_cuda.BRANCH)
         tron_cuda.library(tron_cuda.RAMP)
+        tron_cuda.library(tron_cuda.QPSUB)
         bus_cuda.library()
         print(f"phase 0: built {len(KERNEL_SOURCES)} kernels in parallel in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -414,6 +436,62 @@ def phase2b_ramp(dev, data, loads, T: int, on_card: bool) -> dict:
     return out
 
 
+def qp_inputs(data, base=None) -> dict:
+    """The QP of ``data`` linearized at ``base`` (an ``SqpBasePoint``), by
+    default at the case's own operating point (the JAX package's qpsub
+    benchmark, tools/model_bench.py)."""
+    from exaadmm_tpu_torch.models.qpsub.sqp import (SqpBasePoint,
+                                                    build_qp_inputs)
+    from exaadmm_tpu_torch.utils.grid_data import build_grid_data
+    if base is None:
+        base = SqpBasePoint(pg=data.Pg0, qg=data.Qg0, vm=data.Vm, va=data.Va)
+    return build_qp_inputs(data, build_grid_data(data), base)
+
+
+def phase2c_qpsub(dev, data, on_card: bool) -> dict:
+    from exaadmm_tpu_torch.models.qpsub import model as Q
+    from exaadmm_tpu_torch.ops import tron_cuda
+    from exaadmm_tpu_torch.utils.environment import Parameters
+
+    qp = qp_inputs(data)
+    out = {}
+    for use_linelimit in (True, False):
+        for dtype in (torch.float64, torch.float32):
+            par = Parameters(verbose=0, tron_step_cap=50)
+            model = Q.build_model(data, par, qp, use_linelimit=use_linelimit,
+                                  dtype=dtype, device=dev)
+            sol = model.one_level_reset(Q.init_solution(model, 4e3, 4e3))
+            # perturb l and v of the lines so the lanes spread in difficulty
+            rng = np.random.default_rng(0)
+            b = sol.base
+
+            def noise():
+                return torch.as_tensor(rng.normal(
+                    0, 0.05, tuple(b.l.line.shape))).to(device=dev,
+                                                        dtype=dtype)
+
+            sol = sol.replace(base=b.replace(
+                l=b.l.replace(line=b.l.line + noise()),
+                v=b.v.replace(line=b.v.line + noise())))
+            x0, xl, xu, params, lam0, mu0, act = Q.qpsub_inputs(model, sol, 1)
+            opts = Q.qpsub_tolerances(par, dtype, use_linelimit)
+
+            def kernel():
+                return tron_cuda.tron_alm_qpsub(x0, xl, xu, params, lam0, mu0,
+                                                active0=act, **opts)
+
+            def plain():
+                return tron_cuda.tron_alm_qpsub_plain(
+                    x0, xl, xu, params, lam0, mu0, active0=act, **opts)
+
+            key = ("f64" if dtype == torch.float64 else "f32") + (
+                "" if use_linelimit else "_nolimit")
+            label = "phase 2c: tron_alm_qpsub" + (
+                "" if use_linelimit else " without line limits")
+            out[key] = _tron_vs_plain(label, kernel, plain, act, dtype, dev)
+    return out
+
+
 def phase3_case9(dev, on_card: bool) -> dict:
     import exaadmm_tpu_torch as E
     from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
@@ -455,6 +533,7 @@ def phase4_main(dev, data, on_card: bool) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
     tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
+    tron_cuda.qpsub_launches = 0
     t0 = time.perf_counter()
     res = E.solve_acopf(data.case, data=data, rho_pq=3e3, rho_va=3e5,
                         outer_iterlim=3, inner_iterlim=100, outer_eps=0.0,
@@ -463,6 +542,7 @@ def phase4_main(dev, data, on_card: bool) -> dict:
     secs = time.perf_counter() - t0
     launches = {"tron_alm_branch": tron_cuda.launches,
                 "tron_alm_ramp": tron_cuda.ramp_launches,
+                "tron_alm_qpsub": tron_cuda.qpsub_launches,
                 "bus_scatter": bus_cuda.launches}
     info = res.info
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
@@ -481,7 +561,8 @@ def phase4_main(dev, data, on_card: bool) -> dict:
            "main path: u not finite")
     if on_card:
         _check(launches["tron_alm_branch"] == info.cumul
-               and launches["tron_alm_ramp"] == 0,
+               and launches["tron_alm_ramp"] == 0
+               and launches["tron_alm_qpsub"] == 0,
                f"main path: TRON launches {launches}")
         _check(launches["bus_scatter"] == 2 * info.cumul,
                f"main path: bus launches {launches}")
@@ -494,6 +575,7 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
     from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
     tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
+    tron_cuda.qpsub_launches = 0
     t0 = time.perf_counter()
     res = E.solve_mpacopf(CASE9, DEMAND9, start_period=1, end_period=3,
                           rho_pq=4e2, rho_va=4e4, outer_iterlim=30,
@@ -552,6 +634,7 @@ def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
     tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
+    tron_cuda.qpsub_launches = 0
     t0 = time.perf_counter()
     res = E.solve_mpacopf(data.case, data=data, loads=loads, end_period=T,
                           rho_pq=4e2, rho_va=4e4, outer_iterlim=3,
@@ -561,6 +644,7 @@ def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
     secs = time.perf_counter() - t0
     launches = {"tron_alm_branch": tron_cuda.launches,
                 "tron_alm_ramp": tron_cuda.ramp_launches,
+                "tron_alm_qpsub": tron_cuda.qpsub_launches,
                 "bus_scatter": bus_cuda.launches}
     info = res.info
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
@@ -580,7 +664,8 @@ def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
            "multi-period path: u not finite")
     if on_card:
         _check(launches["tron_alm_branch"] == info.cumul
-               and launches["tron_alm_ramp"] == info.cumul,
+               and launches["tron_alm_ramp"] == info.cumul
+               and launches["tron_alm_qpsub"] == 0,
                f"multi-period path: TRON launches {launches}")
         _check(launches["bus_scatter"] == 2 * info.cumul,
                f"multi-period path: bus launches {launches}")
@@ -588,33 +673,152 @@ def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
                 mismatch=info.mismatch, err_ramp=res.err_ramp, peak=peak)
 
 
-def profile_main(dev, label: str, model, sol, warmup: int = 5,
+def phase3c_case9_qpsub(dev, on_card: bool) -> dict:
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.models.qpsub.model import QP_KEYS
+    from exaadmm_tpu_torch.models.qpsub.sqp import SqpBasePoint
+    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
+    from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
+    from tests import qpsub_fixture as fx
+
+    # the reference test's base point: vm = sqrt(bus_w), va from the lines
+    data = opf_loaddata(CASE9, verbose=0)
+    va = np.zeros(data.nbus)
+    va[data.line_from] = fx.line_var[4]
+    va[data.line_to] = fx.line_var[5]
+    qp = qp_inputs(data, SqpBasePoint(pg=fx.pg, qg=fx.qg,
+                                      vm=np.sqrt(fx.bus_w), va=va))
+    tron_cuda.qpsub_launches = bus_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = E.solve_qpsub(CASE9, *[qp[k] for k in QP_KEYS], 1e5,
+                        outer_iterlim=10000, inner_iterlim=1, scale=1e-4,
+                        rho_pq=4000.0, rho_va=4000.0, outer_eps=2e-6,
+                        verbose=0, device=dev)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    info = res.info
+    lam = res.sqp_out["lambda"]
+    rel = abs(info.objval - QP_PIN_OBJ) / abs(QP_PIN_OBJ)
+    print(f"phase 3c: case9 QP {info.status} outer {info.outer} cumul "
+          f"{info.cumul} (pin {QP_PIN_ITERS}) obj {info.objval!r} (rel diff "
+          f"{rel:.2e}) in {secs:.2f} s ({info.cumul / info.time_overall:.1f} "
+          f"it/s in the ADMM loop); dual_infeas "
+          f"{res.sqp_out['dual_infeas'].shape} lambda {lam.shape}, max "
+          f"lambda[2:] {lam[2:].max():.3e}; launches qpsub "
+          f"{tron_cuda.qpsub_launches} bus {bus_cuda.launches}")
+    _check(info.status == "Solved", f"case9 QP: status {info.status}")
+    for name in ("outer", "cumul"):
+        n = getattr(info, name)
+        _check(abs(n - QP_PIN_ITERS) <= 0.02 * QP_PIN_ITERS,
+               f"case9 QP: {name} {n}")
+    _check(rel <= 1e-6, f"case9 QP: obj {info.objval}")
+    _check(res.sqp_out["dual_infeas"].shape == (3 + 6 * 9,),
+           "case9 QP: dual_infeas shape")
+    _check(lam.shape == (4, 9), "case9 QP: lambda shape")
+    _check(bool(np.all(lam[2:] <= 1e-12)), "case9 QP: lambda[2:] > 1e-12")
+    if on_card:
+        _check(tron_cuda.qpsub_launches == info.cumul,
+               f"case9 QP: {tron_cuda.qpsub_launches} qpsub launches for "
+               f"{info.cumul} iterations")
+        _check(bus_cuda.launches == 2 * info.cumul,
+               f"case9 QP: {bus_cuda.launches} bus launches")
+    return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
+                seconds=secs)
+
+
+def phase6_qpsub(dev, data, on_card: bool) -> dict:
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.models.qpsub.model import QP_KEYS
+    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
+
+    qp = qp_inputs(data)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    tron_cuda.launches = tron_cuda.ramp_launches = 0
+    tron_cuda.qpsub_launches = bus_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = E.solve_qpsub(data.case, *[qp[k] for k in QP_KEYS], 1e5, data=data,
+                        outer_iterlim=QP_ITERS, scale=1e-4, rho_pq=4e3,
+                        rho_va=4e3, outer_eps=0.0, tron_step_cap=24,
+                        verbose=0, device=dev)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches = {"tron_alm_branch": tron_cuda.launches,
+                "tron_alm_ramp": tron_cuda.ramp_launches,
+                "tron_alm_qpsub": tron_cuda.qpsub_launches,
+                "bus_scatter": bus_cuda.launches}
+    info = res.info
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    rate = info.cumul / info.time_overall
+    print(f"phase 6: {data.case} QP ({data.nbus} buses, {data.nline} lines, "
+          f"{data.ngen} gens) fp64: {info.cumul} one-level iterations; ADMM "
+          f"loop {info.time_overall:.3f} s = {rate:.2f} it/s, whole call "
+          f"with setup {secs:.3f} s = {info.cumul / secs:.2f} it/s; mismatch "
+          f"{info.mismatch!r} dualres {info.dualres!r} obj {info.objval!r}; "
+          f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
+    for name in ("mismatch", "primres", "dualres", "objval", "auglag"):
+        _check(bool(np.isfinite(getattr(info, name))),
+               f"qpsub path: {name} not finite")
+    _check(info.cumul == QP_ITERS, f"qpsub path: {info.cumul} iterations")
+    _check(bool(torch.isfinite(res.solution.base.u.line).all()),
+           "qpsub path: u not finite")
+    for k, v in res.sqp_out.items():
+        _check(bool(np.isfinite(v).all()), f"qpsub path: sqp_out {k}")
+    if on_card:
+        _check(launches["tron_alm_qpsub"] == info.cumul
+               and launches["tron_alm_branch"] == 0
+               and launches["tron_alm_ramp"] == 0,
+               f"qpsub path: TRON launches {launches}")
+        _check(launches["bus_scatter"] == 2 * info.cumul,
+               f"qpsub path: bus launches {launches}")
+    return dict(launches=launches, rate=rate, seconds=secs,
+                mismatch=info.mismatch, peak=peak)
+
+
+def two_level_hooks(model, beta: float = 1e3):
+    """The two-level driver's inner iteration, hook by hook: (name,
+    fn(sol, iteration)); the last returns (sol, scalars)."""
+    return (
+        ("x", lambda s, it: model.update_x(model.inner_prestep(s), it)[0]),
+        ("xbar", lambda s, it: model.update_xbar(s)),
+        ("z", lambda s, it: model.update_z(s, beta)),
+        ("l", lambda s, it: model.update_l(s, beta)),
+        ("residual", lambda s, it: model.update_residual(s, beta)),
+    )
+
+
+def one_level_hooks(model):
+    """The one-level driver's iteration, hook by hook, as
+    ``two_level_hooks``; ``model`` is the driver's (``solve_prep``'s)."""
+    return (
+        ("x", lambda s, it: model.update_x(s, it)[0]),
+        ("xbar", lambda s, it: model.update_xbar(s)),
+        ("l", lambda s, it: model.update_l_single(s)),
+        ("residual", lambda s, it: model.update_residual(s, 0.0)),
+    )
+
+
+def profile_main(dev, label: str, hooks, sol, readback, warmup: int = 5,
                  iters: int = 20) -> dict:
-    """Where an inner iteration's time goes for ``model`` from ``sol``: host
-    time per hook with a synchronize after each hook; the wall time per
+    """Where an iteration's time goes for ``hooks`` from ``sol``: host time
+    per hook with a synchronize after each hook; the wall time per
     iteration without them; and, from torch.profiler over the same
     unsynchronized iterations, the device time by kernel and the device's
-    idle share."""
+    idle share. ``readback`` names the scalars the driver reads back each
+    iteration."""
     state = {"sol": sol, "inner": 0}
-    beta = 1e3
-    hooks = (
-        ("x", lambda s: model.update_x(model.inner_prestep(s),
-                                       state["inner"])[0]),
-        ("xbar", model.update_xbar),
-        ("z", lambda s: model.update_z(s, beta)),
-        ("l", lambda s: model.update_l(s, beta)),
-        ("residual", lambda s: model.update_residual(s, beta)),
-    )
 
     def step(times=None):
         state["inner"] += 1
         sol = state["sol"]
         for name, fn in hooks:
             t0 = time.perf_counter()
-            sol = fn(sol)
+            sol = fn(sol, state["inner"])
             if name == "residual":
                 sol, scalars = sol
-                float(scalars["primres"])  # the ADMM loop's one read-back
+                # the driver's one read-back
+                torch.stack([scalars[k] for k in readback]).tolist()
             if times is not None:
                 _sync(dev)
                 times[name] = times.get(name, 0.0) + time.perf_counter() - t0
@@ -648,7 +852,7 @@ def profile_main(dev, label: str, model, sol, warmup: int = 5,
             kernels[e.key] = (t / 1e3 / iters, e.count / iters)
     busy_ms = sum(t for t, _ in kernels.values())
     launches = sum(n for _, n in kernels.values())
-    print(f"profile {label}: per inner iteration {wall_ms:.3f} ms wall; with "
+    print(f"profile {label}: per iteration {wall_ms:.3f} ms wall; with "
           f"a synchronize after each hook: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in hook_ms.items()))
     print(f"profile {label}: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
@@ -699,25 +903,30 @@ def run(device, big_data, mp_data, mp_loads, T: int) -> dict:
     results["tron"] = phase2_tron(dev, big_data, on_card)
     results["tron_mp"] = phase2_branch_periods(dev, *mp)
     results["ramp"] = phase2b_ramp(dev, *mp)
+    results["qpsub"] = phase2c_qpsub(dev, big_data, on_card)
     results["case9"] = phase3_case9(dev, on_card)
     results["case9_mp"] = phase3b_case9_mpacopf(dev, on_card)
+    results["case9_qp"] = phase3c_case9_qpsub(dev, on_card)
     results["main"] = phase4_main(dev, big_data, on_card)
     results["main_mp"] = phase5_mpacopf(dev, *mp)
+    results["main_qp"] = phase6_qpsub(dev, big_data, on_card)
     kern = []
     for name, key in (("tron_alm_branch", "tron"), ("tron_alm_ramp", "ramp"),
-                      ("bus_scatter", "bus")):
+                      ("tron_alm_qpsub", "qpsub"), ("bus_scatter", "bus")):
         r = results[key]["f64"]
         if key == "bus":
             err = max(r["abs"], results["bus_periods"]["f64"]["abs"])
         elif key == "tron":
             err = max(r["dx_all"], results["tron_mp"]["f64"]["dx_all"])
+        elif key == "qpsub":
+            err = max(r["dx_all"], results["qpsub"]["f64_nolimit"]["dx_all"])
         else:
             err = r["dx_all"]
         kern.append({"name": name, "route": "cuda",
                      "source": KERNEL_SOURCES[name][0],
                      "replaces": KERNEL_SOURCES[name][1],
-                     "launches": (results["main"]["launches"][name]
-                                  + results["main_mp"]["launches"][name]),
+                     "launches": sum(results[m]["launches"][name]
+                                     for m in ("main", "main_mp", "main_qp")),
                      "max_abs_err": err, "ms": r["ms"],
                      "plain_ms": r["plain_ms"]})
     results["kernels"] = kern
@@ -731,6 +940,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from exaadmm_tpu_torch.models.acopf import model as M
     from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.models.qpsub import model as Q
     from exaadmm_tpu_torch.utils.environment import Parameters
     from exaadmm_tpu_torch.utils.synthetic import (synthetic_case,
                                                    synthetic_load_profile)
@@ -744,10 +954,17 @@ def main() -> int:
     results = run("cuda", big, mp_data, mp_loads, T)
     if "--profile" in sys.argv[1:]:
         model = M.build_model(big, Parameters(verbose=0), device=dev)
-        profile_main(dev, "phase 4", model, M.init_solution(model, 3e3, 3e5))
+        profile_main(dev, "phase 4", two_level_hooks(model),
+                     M.init_solution(model, 3e3, 3e5), ("primres",))
         model = _mp_model(dev, mp_data, mp_loads, T, torch.float64,
                           Parameters(verbose=0))
-        profile_main(dev, "phase 5", model, MP.init_solution(model, 4e2, 4e4))
+        profile_main(dev, "phase 5", two_level_hooks(model),
+                     MP.init_solution(model, 4e2, 4e4), ("primres",))
+        model = Q.build_model(big, Parameters(verbose=0, tron_step_cap=24),
+                              qp_inputs(big), device=dev)
+        sol = model.one_level_reset(Q.init_solution(model, 4e3, 4e3))
+        profile_main(dev, "phase 6", one_level_hooks(model.solve_prep(sol)),
+                     sol, ("mismatch", "dualres"))
     if "--solve" in sys.argv[1:]:
         solve_to_tolerance(dev, big)
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,4 +1,4 @@
-"""exaadmm_tpu_torch: the two-level ADMM ACOPF solver in PyTorch and CUDA.
+"""exaadmm_tpu_torch: the ADMM ACOPF solvers in PyTorch and CUDA.
 
 The port of ``exaadmm_tpu`` (JAX) to PyTorch with hand-written kernels for an
 NVIDIA H100 (``sm_90a``). It mirrors the JAX package's module names; inside,
@@ -7,24 +7,27 @@ updates are plain functions on tensors, every tensor lives on an explicit
 ``device``, and the default dtype is ``torch.float64``.
 
 Nothing here is trained, so there is no ``nn.Module`` and no
-``torch.autograd.Function``. The two kernels of the main path are built from
-``csrc/`` at first use on a CUDA tensor; on a CPU tensor each wrapper runs
-its plain PyTorch version:
+``torch.autograd.Function``. The kernels are built from ``csrc/`` at first
+use on a CUDA tensor; on a CPU tensor each wrapper runs its plain PyTorch
+version:
 
 - ``ops/tron_cuda.py``: the TRON/ALM batches, one body
   (``csrc/tron_alm.cuh``) for the branch instance
-  (``csrc/tron_alm_branch.cu``) and the multi-period ramp instance
-  (``csrc/tron_alm_ramp.cu``),
+  (``csrc/tron_alm_branch.cu``), the multi-period ramp instance
+  (``csrc/tron_alm_ramp.cu``) and the QP-subproblem instance
+  (``csrc/tron_alm_qpsub.cu``),
 - ``ops/bus_cuda.py``: the deterministic bus scatter (``csrc/bus_scatter.cu``).
 
 Entry points: ``solve_acopf`` (single period) and ``solve_mpacopf``
-(periods coupled by generator ramping).
+(periods coupled by generator ramping) on the two-level ADMM, and
+``solve_qpsub`` (the QP subproblem of an outer SQP) on the one-level ADMM.
 
 This package imports neither jax nor ``exaadmm_tpu``.
 """
 
 from .interface.solve_acopf import SolveResult, solve_acopf
 from .interface.solve_mpacopf import MpacopfResult, solve_mpacopf
+from .interface.solve_qpsub import QpsubResult, solve_qpsub
 from .utils.environment import Blocks, Parameters, Solution
 from .utils.opfdata import opf_loaddata
 
@@ -35,6 +38,8 @@ __all__ = [
     "SolveResult",
     "solve_mpacopf",
     "MpacopfResult",
+    "solve_qpsub",
+    "QpsubResult",
     "Parameters",
     "Solution",
     "Blocks",

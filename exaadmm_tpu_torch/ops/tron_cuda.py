@@ -1,13 +1,16 @@
 """The TRON/ALM batches: one small subproblem per lane.
 
-Replaces ``exaadmm_tpu/ops/tron_pallas.py::tron_alm_batched_pallas`` for two
-problem instances, which share one CUDA body (``csrc/tron_alm.cuh``):
+Replaces ``exaadmm_tpu/ops/tron_pallas.py::tron_alm_batched_pallas`` for
+three problem instances, which share one CUDA body (``csrc/tron_alm.cuh``):
 
 - the ACOPF branch (n=6, ncon=2, ``branch_fgh_linelimit``,
   ``branch_alm_delta``): ``tron_alm_branch``, ``csrc/tron_alm_branch.cu``;
 - the multi-period ramp generator (n=3, ncon=1, ``ramp_fgh``, the objective
   evaluated afresh after each ALM round): ``tron_alm_ramp``,
-  ``csrc/tron_alm_ramp.cu``.
+  ``csrc/tron_alm_ramp.cu``;
+- the QP subproblem (n=6, ncon=2, the reduced QP's closed-form ``qp_fgh``
+  of ``models/qpsub/model.py``, ``branch_alm_delta``): ``tron_alm_qpsub``,
+  ``csrc/tron_alm_qpsub.cu``.
 
 On a CUDA tensor a wrapper runs its kernel, one thread per lane, each thread
 the lane's own loop of the lockstep state machine; on a CPU tensor it runs
@@ -15,7 +18,7 @@ the plain version ``ops/tron.py::tron_alm_batched`` with the instance's
 functions; any other device raises.
 
 ``launches`` counts the branch kernel's launches, ``ramp_launches`` the ramp
-kernel's.
+kernel's and ``qpsub_launches`` the QP-subproblem kernel's.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from .tron import TronALMResult, tron_alm_batched
 
 launches = 0
 ramp_launches = 0
+qpsub_launches = 0
 
 # (x0, xl, xu, params, lam0, mu0, active0, x, lam, mu, minor, alm, cviol,
 #  B, gtol, frtol, ctol, mu_max, max_minor, max_auglag, step_cap, stream)
@@ -46,6 +50,8 @@ class _Instance(NamedTuple):
 
 BRANCH = _Instance("tron_alm_branch", 6, 2, 33)
 RAMP = _Instance("tron_alm_ramp", 3, 1, 9)
+# the lower triangle of G (21), h0, w3, w4 (6 each), fc, e3, e4, scale
+QPSUB = _Instance("tron_alm_qpsub", 6, 2, 21 + 3 * 6 + 4)
 _SUFFIX = {torch.float64: "_f64", torch.float32: "_f32"}
 
 
@@ -72,6 +78,18 @@ def pack_ramp_params(params: dict) -> torch.Tensor:
     return torch.stack([params[k] for k in PARAM_KEYS]).contiguous()
 
 
+def pack_qpsub_params(params: dict) -> torch.Tensor:
+    """The QP-subproblem kernel's (43, B) parameter block: G's lower
+    triangle row by row (entry (i, j), j <= i, at row i (i + 1) / 2 + j),
+    then the rows of h0, w3 and w4, then fc, e3, e4 and scale."""
+    G = params["G"]
+    rows = [G[i, j] for i in range(6) for j in range(i + 1)]
+    for k in ("h0", "w3", "w4"):
+        rows.extend(params[k].unbind(0))
+    rows.extend(params[k] for k in ("fc", "e3", "e4", "scale"))
+    return torch.stack(rows)
+
+
 def tron_alm_branch_plain(x0, xl, xu, params, lam0, mu0, *, active0=None,
                           **opts) -> TronALMResult:
     """The plain PyTorch version of the branch batch, on any device."""
@@ -91,6 +109,18 @@ def tron_alm_ramp_plain(x0, xl, xu, params, lam0, mu0, *, active0=None,
     return tron_alm_batched(ramp_obj, ramp_cons, ramp_fgh, x0, xl, xu,
                             params, lam0, mu0, active0=active0,
                             alm_delta_fn=None, **opts)
+
+
+def tron_alm_qpsub_plain(x0, xl, xu, params, lam0, mu0, *, active0=None,
+                         **opts) -> TronALMResult:
+    """The plain PyTorch version of the QP-subproblem batch, on any
+    device; the objective is affine in (lam, mu) as the branch problem's,
+    so its ALM delta is ``branch_alm_delta``."""
+    from ..models.acopf.branch import branch_alm_delta
+    from ..models.qpsub.model import qp_cons, qp_fgh, qp_obj
+    return tron_alm_batched(qp_obj, qp_cons, qp_fgh, x0, xl, xu, params,
+                            lam0, mu0, active0=active0,
+                            alm_delta_fn=branch_alm_delta, **opts)
 
 
 def _launch(inst: _Instance, x0, xl, xu, P, lam0, mu0, active0, gtol, frtol,
@@ -181,4 +211,26 @@ def tron_alm_ramp(x0, xl, xu, params, lam0, mu0, *, gtol: float,
     global ramp_launches
     if x0.shape[1] > 0:   # an empty batch launches no kernel
         ramp_launches += 1
+    return res
+
+
+def tron_alm_qpsub(x0, xl, xu, params, lam0, mu0, *, gtol: float,
+                   frtol: float, ctol: float, mu_max: float, max_minor: int,
+                   max_auglag: int, step_cap: int | None = None,
+                   active0: torch.Tensor | None = None) -> TronALMResult:
+    """Solve the B reduced line QPs; x0/xl/xu (6, B), lam0 (2, B), mu0 (B,),
+    params a dict of G (6, 6, B, exactly symmetric), h0/w3/w4 (6, B) and
+    fc/e3/e4/scale (B,). Lanes with ``active0`` False come back untouched."""
+    opts = dict(gtol=gtol, frtol=frtol, ctol=ctol, mu_max=mu_max,
+                max_minor=max_minor, max_auglag=max_auglag, step_cap=step_cap)
+    if x0.device.type == "cpu":
+        return tron_alm_qpsub_plain(x0, xl, xu, params, lam0, mu0,
+                                    active0=active0, **opts)
+    if x0.device.type != "cuda":
+        raise ValueError(f"tron_alm_qpsub: unsupported device {x0.device}")
+    res = _launch(QPSUB, x0, xl, xu, pack_qpsub_params(params), lam0, mu0,
+                  active0, **opts)
+    global qpsub_launches
+    if x0.shape[1] > 0:   # an empty batch launches no kernel
+        qpsub_launches += 1
     return res

@@ -10,6 +10,9 @@ by those names, so a caller holding a JAX ``GridData`` or ``Solution`` (one
   "branch_alm": {"lam1": (N,), "lam2": (N,), "mu": (N,)}}``
 - multi-period solution: ``{"acopf": <solution dict of (T, ...) arrays>,
   "ramp": {"u": (T, ngen), ..., "alm_xi": (T, ngen)}}``
+- QP-subproblem solution: ``{"base": <solution dict>, "sqp_line": (N, 6),
+  "v_prev": {"gen": ..., "line": ...}, "alm_lam_j": (N,), "alm_lam_k": (N,),
+  "alm_mu": (N,)}``
 """
 
 from __future__ import annotations
@@ -19,9 +22,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from .environment import (RAMP_FIELDS, SOLUTION_BLOCKS, Blocks,
-                          BranchALMState, RampState, Solution,
-                          SolutionMpacopf)
+from .environment import (QPSUB_ALM_FIELDS, RAMP_FIELDS, SOLUTION_BLOCKS,
+                          Blocks, BranchALMState, RampState, Solution,
+                          SolutionMpacopf, SolutionQpsub)
 from .grid_data import GridData, build_csr
 
 _SIZES = ("nbus", "ngen", "nline", "nline_padded")
@@ -86,6 +89,21 @@ def mpacopf_solution_from_numpy(d: dict, *, dtype=torch.float64,
         ramp=RampState(**ramp))
 
 
+def qpsub_solution_from_numpy(d: dict, *, dtype=torch.float64,
+                              device="cpu") -> SolutionQpsub:
+    """A port :class:`SolutionQpsub` from the nested dicts of
+    ``qpsub_solution_to_numpy``."""
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float64)).to(
+            device=device, dtype=dtype)
+
+    return SolutionQpsub(
+        base=solution_from_numpy(d["base"], dtype=dtype, device=device),
+        sqp_line=t(d["sqp_line"]),
+        v_prev=Blocks(gen=t(d["v_prev"]["gen"]), line=t(d["v_prev"]["line"])),
+        **{k: t(d[k]) for k in QPSUB_ALM_FIELDS})
+
+
 def _np(a):
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
@@ -114,3 +132,13 @@ def mpacopf_solution_to_numpy(sol) -> dict:
     dicts."""
     return {"acopf": solution_to_numpy(sol.acopf),
             "ramp": {k: _np(getattr(sol.ramp, k)) for k in RAMP_FIELDS}}
+
+
+def qpsub_solution_to_numpy(sol) -> dict:
+    """The state of a ``SolutionQpsub`` of either package as nested numpy
+    dicts."""
+    out = {"base": solution_to_numpy(sol.base),
+           "sqp_line": _np(sol.sqp_line),
+           "v_prev": {"gen": _np(sol.v_prev.gen), "line": _np(sol.v_prev.line)}}
+    out.update({k: _np(getattr(sol, k)) for k in QPSUB_ALM_FIELDS})
+    return out

@@ -4,7 +4,7 @@ Counterpart of ``exaadmm_tpu/utils/environment.py``. The pytrees there become
 plain dataclasses here: ``replace`` returns a copy with some fields changed,
 and ``to`` moves every tensor to another device or dtype.
 
-- ``Parameters`` holds only the constants the two-level ACOPF solve reads,
+- ``Parameters`` holds only the constants the ported solves read,
 - ``Blocks`` is one ADMM-space vector split by component class: (ngen, 2)
   generator rows ``[pg, qg]`` and (nline_padded, 8) line rows
   ``[pij, qij, pji, qji, wi, wj, thi, thj]``,
@@ -13,6 +13,8 @@ and ``to`` moves every tensor to another device or dtype.
 - ``SolutionMpacopf`` is the multi-period state: a ``Solution`` whose
   tensors have a leading period axis, and the ramp coupling in
   ``RampState``,
+- ``SolutionQpsub`` is the QP-subproblem state: a ``Solution``, the line
+  deltas, the previous v and the per-line 1j/1k ALM state,
 - ``IterationInformation`` holds the host-side counters and scalars.
 """
 
@@ -110,6 +112,15 @@ def blocks_map(fn, *blocks: Blocks) -> Blocks:
         gen=fn(*(b.gen for b in blocks)),
         line=fn(*(b.line for b in blocks)),
     )
+
+
+def blocks_norm(b: Blocks, line_mask: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """2-norm over both blocks; ``line_mask`` leaves the padded lines out."""
+    lsq = b.line * b.line
+    if line_mask is not None:
+        lsq = lsq * line_mask[:, None]
+    return torch.sqrt(torch.sum(b.gen * b.gen) + torch.sum(lsq))
 
 
 @dataclasses.dataclass
@@ -211,6 +222,26 @@ class SolutionMpacopf(_TensorRecord):
     def u(self) -> Blocks:
         """The component variables; the driver reads their dtype."""
         return self.acopf.u
+
+
+@dataclasses.dataclass
+class SolutionQpsub(_TensorRecord):
+    """QP-subproblem state (one-level ADMM); ``base.z`` stays zero."""
+
+    base: Solution
+    sqp_line: torch.Tensor   # (nline_padded, 6) line deltas, Hs ordering
+    v_prev: Blocks           # v of the previous iteration (dual residual)
+    alm_lam_j: torch.Tensor  # (nline_padded,) 1j multiplier
+    alm_lam_k: torch.Tensor  # (nline_padded,) 1k multiplier
+    alm_mu: torch.Tensor     # (nline_padded,) shared 1j/1k ALM penalty
+
+    @property
+    def u(self) -> Blocks:
+        return self.base.u
+
+
+#: the per-line ALM fields of a SolutionQpsub
+QPSUB_ALM_FIELDS = ("alm_lam_j", "alm_lam_k", "alm_mu")
 
 
 @dataclasses.dataclass

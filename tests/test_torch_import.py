@@ -37,8 +37,8 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     lines = dict(ln.split(" ", 1) for ln in out.stdout.splitlines())
     assert lines["BAD"] == "[]"
-    # every module of the package, the multi-period ones included
-    assert int(lines["COUNT"]) >= 24
+    # every module of the package, the multi-period and qpsub ones included
+    assert int(lines["COUNT"]) >= 30
 
 
 def test_cuda_device_without_cuda_raises(case9_path):
@@ -61,14 +61,28 @@ def test_wrappers_refuse_other_devices():
         tron_cuda.tron_alm_branch(x, x, x, {}, x[:2], x[0], **opts)
     with pytest.raises(ValueError, match="unsupported device"):
         tron_cuda.tron_alm_ramp(x[:3], x[:3], x[:3], {}, x[:1], x[0], **opts)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tron_cuda.tron_alm_qpsub(x, x, x, {}, x[:2], x[0], **opts)
 
 
 def test_cpu_wrappers_launch_no_kernel(case9_path):
+    from exaadmm_tpu_torch.models.qpsub.model import QP_KEYS
+    from exaadmm_tpu_torch.models.qpsub.sqp import (SqpBasePoint,
+                                                    build_qp_inputs)
+    from exaadmm_tpu_torch.utils.grid_data import build_grid_data
+    from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
+
     bus_cuda.launches = tron_cuda.launches = tron_cuda.ramp_launches = 0
+    tron_cuda.qpsub_launches = 0
     exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
                                   inner_iterlim=2, verbose=0)
     exaadmm_tpu_torch.solve_mpacopf(
         case9_path, os.path.join(ROOT, "data", "case9_demand"), end_period=2,
         outer_iterlim=1, inner_iterlim=2, warm_start=False, verbose=0)
+    data = opf_loaddata(case9_path, verbose=0)
+    qp = build_qp_inputs(data, build_grid_data(data), SqpBasePoint(
+        pg=data.Pg0, qg=data.Qg0, vm=data.Vm, va=data.Va))
+    exaadmm_tpu_torch.solve_qpsub(case9_path, *[qp[k] for k in QP_KEYS],
+                                  outer_iterlim=2, verbose=0)
     assert bus_cuda.launches == 0 and tron_cuda.launches == 0
-    assert tron_cuda.ramp_launches == 0
+    assert tron_cuda.ramp_launches == 0 and tron_cuda.qpsub_launches == 0
