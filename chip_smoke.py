@@ -13,7 +13,10 @@ per source, all at once) and runs, in order:
 1. the bus-scatter kernel against its plain version (``index_add_``) on the
    synthetic 9241-bus grid, fp64 and fp32: max relative difference per
    channel (difference over the channel's largest magnitude) <= 1e-13 in
-   fp64 and <= 1e-6 in fp32, two kernel runs bit-identical, and both times;
+   fp64 and <= 1e-6 in fp32, two kernel runs bit-identical; the device
+   time per launch of both (the host queues every rep before the device
+   starts, ``utils/timing.py``) beside their host enqueue time per call and
+   the kernel's bound (``ops/bounds.py``);
 1b. the same scatter over 8 periods folded into the channel axis (the
    multi-period bus update, synthetic 2869 buses), on the arc values and on
    the generator values with the ramp terms blended in: bit-identical to 8
@@ -26,7 +29,11 @@ per source, all at once) and runs, in order:
    1e-3 on the agreeing lanes and 5e-3 on all lanes in fp32 (two compilers'
    fp32 rounding may flip a TRON branch decision on a few lanes); then the
    same on the multi-period path's branch batch, the 39,016 lines of
-   synthetic 2869 buses tiled over 8 periods;
+   synthetic 2869 buses tiled over 8 periods. Each TRON line gives the
+   lanes that differ, those whose x is not bit-identical, max |dx|, the mean,
+   p99 and max minor iterations, the kernel's device time, the us per step
+   of the slowest lane (device time over the max minor iterations), its
+   host enqueue time and its bound;
 2b. the ramp TRON/ALM kernel against its plain version on the 3,010-lane
    ramp batch of synthetic 2869 buses over 8 periods, at the first inner
    iteration, generator prox targets perturbed from a numpy seed, step_cap
@@ -79,8 +86,13 @@ share); ``--solve`` adds the time to tolerance of phase 4's configuration.
 
 Each phase prints one line of numbers; any failure raises, so the script
 exits non-zero and prints no result. The line before the last is one JSON
-object with each kernel's numbers; the last line is
-``{"ok": true, "device": {...}}``.
+object with each kernel's numbers (phase 1's fp64 scatter and phase 2's,
+2b's and 2c's fp64 batches): ``ms`` and ``device_ms`` the device time per
+launch, ``enqueue_ms`` the host's time per call, ``plain_ms`` the plain
+version's, ``bound_ms`` and ``bound_by`` the least time for the bytes and
+operations of that launch, and ``library_ms`` ``index_add_``'s device time
+for the scatter (null for the TRON instances, which no library call
+computes); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -116,27 +128,6 @@ KERNEL_SOURCES = {
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def time_ms(fn, dev, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call: CUDA events on the card, the host clock
-    on the CPU (rehearsal only)."""
-    for _ in range(warmup):
-        fn()
-    _sync(dev)
-    if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def _check(cond: bool, what: str):
@@ -180,8 +171,9 @@ def phase0_device(dev, on_card: bool) -> dict:
 def phase1_bus(dev, data, on_card: bool) -> dict:
     from exaadmm_tpu_torch.models.acopf import kernels
     from exaadmm_tpu_torch.models.acopf import model as M
-    from exaadmm_tpu_torch.ops import bus_cuda
+    from exaadmm_tpu_torch.ops import bounds, bus_cuda
     from exaadmm_tpu_torch.utils.environment import Parameters
+    from exaadmm_tpu_torch.utils.timing import time_pair
 
     out = {}
     for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-6)):
@@ -208,29 +200,46 @@ def phase1_bus(dev, data, on_card: bool) -> dict:
             worst_abs = max(worst_abs, float(diff.max()))
         _check(worst_rel <= tol,
                f"bus_scatter {dtype}: rel diff {worst_rel:.3e} > {tol:.0e}")
-        ms = time_ms(lambda: bus_cuda.bus_scatter(
-            arcs, gd.arc_bus, gd.arc_ptr, gd.arc_idx), dev, reps=100)
-        plain_ms = time_ms(lambda: bus_cuda.bus_scatter_plain(
-            arcs, gd.arc_bus, gd.nbus), dev, reps=100)
+        (ms, enq), (lib_ms, lib_enq) = time_pair(
+            lambda: bus_cuda.bus_scatter(arcs, gd.arc_bus, gd.arc_ptr,
+                                         gd.arc_idx),
+            lambda: bus_cuda.bus_scatter_plain(arcs, gd.arc_bus, gd.nbus),
+            dev, reps=100)
+        nb = bounds.scatter_bytes(arcs.shape[0], gd.nbus, arcs.shape[1],
+                                  arcs.element_size())
+        bound_ms, bound_by = bounds.bound(
+            nb["total"], bounds.scatter_ops(arcs.shape[0], arcs.shape[1]),
+            arcs.element_size())
         key = "f64" if dtype == torch.float64 else "f32"
-        out[key] = dict(rel=worst_rel, abs=worst_abs, ms=ms, plain_ms=plain_ms)
+        out[key] = dict(rel=worst_rel, abs=worst_abs, ms=ms, enqueue_ms=enq,
+                        plain_ms=lib_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
         print(f"phase 1: bus_scatter {key} arcs {tuple(arcs.shape)} -> "
               f"{gd.nbus} buses: max rel diff {worst_rel:.3e} (tol {tol:.0e}),"
-              f" max abs diff {worst_abs:.3e}, bit-identical reruns, kernel "
-              f"{ms:.4f} ms, index_add_ {plain_ms:.4f} ms")
+              f" max abs diff {worst_abs:.3e}, bit-identical reruns; device "
+              f"ms per launch: kernel {ms:.5f}, index_add_ with its zeros "
+              f"{lib_ms:.5f}, bound {bound_ms:.5f} ({bound_by}, "
+              f"{nb['total']} B); host enqueue ms per call: kernel "
+              f"{enq:.5f}, index_add_ {lib_enq:.5f}")
     return out
 
 
-def _tron_vs_plain(label: str, kernel, plain, act, dtype, dev) -> dict:
-    """Run a TRON/ALM kernel and its plain version on the same batch, hold
-    them to phase 2's thresholds and time both."""
+def _tron_vs_plain(label: str, name: str, kernel, plain, act, dtype,
+                   dev) -> dict:
+    """Run the TRON/ALM kernel ``name`` and its plain version on the same
+    batch, hold them to phase 2's thresholds, time both and bound the
+    kernel (``ops/bounds.py``, from this batch's iteration counts)."""
+    from exaadmm_tpu_torch.ops import bounds
+    from exaadmm_tpu_torch.utils.timing import time_ms
     rk = kernel()
     rp = plain()
     _sync(dev)
     a = act.cpu().numpy()
-    mk = rk.minor_iters.cpu().numpy()[a]
+    mk_all = rk.minor_iters.cpu().numpy()
+    ak_all = rk.alm_iters.cpu().numpy()
+    mk = mk_all[a]
     mp = rp.minor_iters.cpu().numpy()[a]
-    ak = rk.alm_iters.cpu().numpy()[a]
+    ak = ak_all[a]
     ap = rp.alm_iters.cpu().numpy()[a]
     same = (mk == mp) & (ak == ap)
     dx = (rk.x - rp.x).abs().amax(dim=0).cpu().numpy()[a]
@@ -246,16 +255,28 @@ def _tron_vs_plain(label: str, kernel, plain, act, dtype, dev) -> dict:
         _check(frac >= 0.95, f"{label} f32: only {frac:.4%} lanes agree")
         _check(dx_same <= 1e-3, f"{label} f32: |dx| {dx_same:.3e} > 1e-3")
         _check(dx_all <= 5e-3, f"{label} f32: |dx| {dx_all:.3e} > 5e-3")
-    ms = time_ms(kernel, dev, reps=5, warmup=1)
-    plain_ms = time_ms(plain, dev, reps=1, warmup=0)
+    ms, enq = time_ms(kernel, dev, reps=5, warmup=1)
+    plain_ms, _ = time_ms(plain, dev, reps=1, warmup=0, ahead=False)
+    B = rk.x.shape[1]
+    isz = rk.x.element_size()
+    nb = bounds.tron_bytes(name, B, isz)
+    ops = bounds.tron_ops(name, mk_all.sum(), ak_all.sum(), B)
+    bound_ms, bound_by = bounds.bound(nb["total"], ops, isz)
+    max_minor = int(mk.max()) if mk.size else 0
+    us_per_step = ms * 1e3 / max(max_minor, 1)
     key = "f64" if dtype == torch.float64 else "f32"
     print(f"{label} {key} B={same.size} step_cap=50: {int((~same).sum())} of "
           f"{same.size} lanes differ in minor/alm iterations ({frac:.4%} "
-          f"agree), max |dx| agreeing {dx_same:.3e}, all {dx_all:.3e}; minor "
-          f"iters mean {mk.mean():.2f} max {mk.max()}; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.1f} ms")
+          f"agree), {int((dx > 0).sum())} lanes with x not bit-identical, max "
+          f"|dx| agreeing {dx_same:.3e}, all {dx_all:.3e}; minor iters mean "
+          f"{mk.mean():.2f} p99 {np.percentile(mk, 99):.0f} max {max_minor}; "
+          f"kernel device {ms:.4f} ms ({us_per_step:.2f} us per step of the "
+          f"slowest lane), host enqueue {enq:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}: {nb['total']} B, {ops:.4g} ops); plain "
+          f"{plain_ms:.1f} ms")
     return dict(frac=frac, dx_same=dx_same, dx_all=dx_all, ms=ms,
-                plain_ms=plain_ms)
+                enqueue_ms=enq, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def phase2_tron(dev, data, on_card: bool) -> dict:
@@ -287,8 +308,9 @@ def phase2_tron(dev, data, on_card: bool) -> dict:
                 x0, xl, xu, params, lam0, mu0, active0=act, **opts)
 
         key = "f64" if dtype == torch.float64 else "f32"
-        out[key] = _tron_vs_plain("phase 2: tron_alm_branch", kernel, plain,
-                                  act, dtype, dev)
+        out[key] = _tron_vs_plain("phase 2: tron_alm_branch",
+                                  "tron_alm_branch", kernel, plain, act,
+                                  dtype, dev)
     return out
 
 
@@ -330,16 +352,17 @@ def phase2_branch_periods(dev, data, loads, T: int, on_card: bool) -> dict:
 
         key = "f64" if dtype == torch.float64 else "f32"
         out[key] = _tron_vs_plain(
-            f"phase 2: tron_alm_branch x {T} periods", kernel, plain, act,
-            dtype, dev)
+            f"phase 2: tron_alm_branch x {T} periods", "tron_alm_branch",
+            kernel, plain, act, dtype, dev)
     return out
 
 
 def phase1b_bus_periods(dev, data, loads, T: int, on_card: bool) -> dict:
     from exaadmm_tpu_torch.models.acopf import kernels
     from exaadmm_tpu_torch.models.mpacopf import model as MP
-    from exaadmm_tpu_torch.ops import bus_cuda
+    from exaadmm_tpu_torch.ops import bounds, bus_cuda
     from exaadmm_tpu_torch.utils.environment import Parameters
+    from exaadmm_tpu_torch.utils.timing import time_ms, time_pair
 
     out = {}
     for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-6)):
@@ -380,24 +403,35 @@ def phase1b_bus_periods(dev, data, loads, T: int, on_card: bool) -> dict:
             worst_abs = max(worst_abs, float(diff.max()))
         _check(rel <= tol, f"bus_scatter_periods {dtype}: rel diff "
                            f"{rel:.3e} > {tol:.0e}")
-        ms = time_ms(lambda: bus_cuda.bus_scatter_periods(
-            arcs, gd.arc_bus, gd.arc_ptr, gd.arc_idx), dev, reps=100)
-        loop_ms = time_ms(lambda: [bus_cuda.bus_scatter(
+        folded_vals = arcs.permute(1, 0, 2).reshape(arcs.shape[1], -1)
+        (ms, enq), (lib_ms, lib_enq) = time_pair(
+            lambda: bus_cuda.bus_scatter_periods(arcs, gd.arc_bus, gd.arc_ptr,
+                                                 gd.arc_idx),
+            lambda: bus_cuda.bus_scatter_plain(folded_vals, gd.arc_bus,
+                                               gd.nbus),
+            dev, reps=100)
+        loop_ms, loop_enq = time_ms(lambda: [bus_cuda.bus_scatter(
             arcs[t], gd.arc_bus, gd.arc_ptr, gd.arc_idx) for t in range(T)],
             dev, reps=100)
-        folded_vals = arcs.permute(1, 0, 2).reshape(arcs.shape[1], -1)
-        plain_ms = time_ms(lambda: bus_cuda.bus_scatter_plain(
-            folded_vals, gd.arc_bus, gd.nbus), dev, reps=100)
+        nb = bounds.scatter_bytes(folded_vals.shape[0], gd.nbus,
+                                  folded_vals.shape[1], arcs.element_size())
+        bound_ms, bound_by = bounds.bound(
+            nb["total"], bounds.scatter_ops(*folded_vals.shape),
+            arcs.element_size())
         key = "f64" if dtype == torch.float64 else "f32"
-        out[key] = dict(rel=rel, abs=worst_abs, ms=ms, loop_ms=loop_ms,
-                        plain_ms=plain_ms)
+        out[key] = dict(rel=rel, abs=worst_abs, ms=ms, enqueue_ms=enq,
+                        loop_ms=loop_ms, plain_ms=lib_ms, library_ms=lib_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
         print(f"phase 1b: bus_scatter_periods {key} {T} periods, arcs "
               f"{tuple(arcs.shape)} and gens {tuple(gens.shape)} -> "
               f"{gd.nbus} buses: both bit-identical to "
               f"{T} single-period calls, max rel diff to index_add_ "
-              f"{rel:.3e} (tol {tol:.0e}); arcs folded {ms:.4f} ms, {T} "
-              f"calls {loop_ms:.4f} ms, index_add_ on the folded rows "
-              f"{plain_ms:.4f} ms")
+              f"{rel:.3e} (tol {tol:.0e}); device ms: arcs folded "
+              f"{ms:.5f}, {T} calls {loop_ms:.5f}, index_add_ with its zeros "
+              f"on the folded rows {lib_ms:.5f}, bound {bound_ms:.5f} "
+              f"({bound_by}, {nb['total']} B); host enqueue ms per call: "
+              f"folded {enq:.5f}, {T} calls {loop_enq:.5f}, index_add_ "
+              f"{lib_enq:.5f}")
     return out
 
 
@@ -431,8 +465,8 @@ def phase2b_ramp(dev, data, loads, T: int, on_card: bool) -> dict:
                                                  mu0, **opts)
 
         key = "f64" if dtype == torch.float64 else "f32"
-        out[key] = _tron_vs_plain("phase 2b: tron_alm_ramp", kernel, plain,
-                                  act, dtype, dev)
+        out[key] = _tron_vs_plain("phase 2b: tron_alm_ramp", "tron_alm_ramp",
+                                  kernel, plain, act, dtype, dev)
     return out
 
 
@@ -488,7 +522,8 @@ def phase2c_qpsub(dev, data, on_card: bool) -> dict:
                 "" if use_linelimit else "_nolimit")
             label = "phase 2c: tron_alm_qpsub" + (
                 "" if use_linelimit else " without line limits")
-            out[key] = _tron_vs_plain(label, kernel, plain, act, dtype, dev)
+            out[key] = _tron_vs_plain(label, "tron_alm_qpsub", kernel, plain,
+                                      act, dtype, dev)
     return out
 
 
@@ -928,7 +963,10 @@ def run(device, big_data, mp_data, mp_loads, T: int) -> dict:
                      "launches": sum(results[m]["launches"][name]
                                      for m in ("main", "main_mp", "main_qp")),
                      "max_abs_err": err, "ms": r["ms"],
-                     "plain_ms": r["plain_ms"]})
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r.get("library_ms"),
+                     "device_ms": r["ms"], "enqueue_ms": r["enqueue_ms"]})
     results["kernels"] = kern
     return results
 

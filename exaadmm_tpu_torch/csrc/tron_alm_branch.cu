@@ -1,4 +1,4 @@
-// Branch TRON/ALM batch: one 6-variable line subproblem per thread.
+// Branch TRON/ALM batch: one 6-variable line subproblem per thread group.
 //
 // Replaces: exaadmm_tpu/ops/tron_pallas.py::tron_alm_batched_pallas for the
 // ACOPF branch instance (n = 6, ncon = 2, branch_fgh_linelimit and
@@ -7,10 +7,11 @@
 // with the functions of exaadmm_tpu_torch/models/acopf/branch.py.
 //
 // The TRON/ALM body, its design and what bounds it are in tron_alm.cuh;
-// this file supplies the problem. Per lane it holds x, g, the symmetric 6x6
-// Hessian, its masked copy and the Cholesky factor; in fp64 that is more
-// than the register file gives a thread, so some of it spills to local
-// memory (nvcc -Xptxas -v reports how much).
+// this file supplies the problem. Its 33 parameters live once per lane in
+// the body's shared memory; obj, cons and gh read them where they need
+// them. gh forms the whole gradient and Hessian on every thread of the
+// group (its entries follow different formulas, which would split the warp
+// if each thread took its own), and each thread keeps its own rows.
 //
 // C interface (no PyTorch headers): tron_alm_branch_f64/_f32 and
 // error_string, each launch returning cudaGetLastError().
@@ -19,8 +20,7 @@
 
 namespace {
 
-using tron_alm::dcos;
-using tron_alm::dsin;
+using tron_alm::dsincos;
 using tron_alm::sym;
 
 // structural nonzeros of the flow coefficient rows K[m][b]: column 0 is
@@ -29,40 +29,45 @@ __host__ __device__ constexpr bool knz(int m, int b) {
   return b == 0 ? m < 2 : (b == 1 ? m >= 2 : true);
 }
 
-// one line: the 33 rows of the packed parameter block
+// one line: the 33 rows of the packed parameter block, 8 admittances in
+// branch.Y_KEYS order, then l (8), rho (8), t (8) and scale
 template <typename T>
-struct BranchProblem {
+struct BranchProblem : tron_alm::LaneParams<T> {
   using Real = T;
   static constexpr int N = 6, NCON = 2, NPARAM = 33;
   static constexpr bool kExactAlmDelta = true;
+  static constexpr int kL = 8, kRho = 16, kT = 24, kScale = 32;
 
-  T YffR, YffI, YftR, YftI, YttR, YttI, YtfR, YtfI;
-  T l[8], rho[8], t[8];
-  T scale;
+  // sin and cos of the last angle difference: gh and cons at a point where
+  // obj or gh was just evaluated (after an accepted step, or at an
+  // unchanged x) reuse them, matched on the angle's bits
+  T trig_v = T(0), trig_s = T(0), trig_c = T(0);
+  bool trig_ok = false;
 
-  __device__ __forceinline__ void load(const T* P, int lane, int B) {
-    YffR = P[0 * B + lane];
-    YffI = P[1 * B + lane];
-    YftR = P[2 * B + lane];
-    YftI = P[3 * B + lane];
-    YttR = P[4 * B + lane];
-    YttI = P[5 * B + lane];
-    YtfR = P[6 * B + lane];
-    YtfI = P[7 * B + lane];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      l[k] = P[(8 + k) * B + lane];
-      rho[k] = P[(16 + k) * B + lane];
-      t[k] = P[(24 + k) * B + lane];
+  __device__ __forceinline__ static bool same_bits(double a, double b) {
+    return __double_as_longlong(a) == __double_as_longlong(b);
+  }
+  __device__ __forceinline__ static bool same_bits(float a, float b) {
+    return __float_as_int(a) == __float_as_int(b);
+  }
+  __device__ __forceinline__ void angle(T v, T& s, T& c) {
+    if (!(trig_ok && same_bits(v, trig_v))) {
+      dsincos(v, &trig_s, &trig_c);
+      trig_v = v;
+      trig_ok = true;
     }
-    scale = P[32 * B + lane];
+    s = trig_s;
+    c = trig_c;
   }
 
   __device__ __forceinline__ void flows(const T* x, T& pij, T& qij, T& pji,
-                                        T& qji) const {
+                                        T& qji) {
+    const T YffR = this->at(0), YffI = this->at(1), YftR = this->at(2),
+            YftI = this->at(3), YttR = this->at(4), YttI = this->at(5),
+            YtfR = this->at(6), YtfI = this->at(7);
     const T vi = x[0], vj = x[1];
-    const T cos_ij = dcos(x[2] - x[3]);
-    const T sin_ij = dsin(x[2] - x[3]);
+    T sin_ij, cos_ij;
+    angle(x[2] - x[3], sin_ij, cos_ij);
     const T vv_cos = vi * vj * cos_ij;
     const T vv_sin = vi * vj * sin_ij;
     const T vi2 = vi * vi;
@@ -74,23 +79,24 @@ struct BranchProblem {
   }
 
   // branch_obj_linelimit: the full ALM objective times scale
-  __device__ __forceinline__ T obj(const T* x, const T* lam, T mu) const {
+  __device__ __forceinline__ T obj(const T* x, const T* lam, T mu) {
     T pij, qij, pji, qji;
     flows(x, pij, qij, pji, qji);
     const T w[8] = {pij, qij, pji, qji, x[0] * x[0], x[1] * x[1], x[2], x[3]};
     T f = T(0);
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const T dw = w[k] - t[k];
-      f = f + l[k] * w[k] + T(0.5) * rho[k] * (dw * dw);
+      const T dw = w[k] - this->at(kT + k);
+      f = f + this->at(kL + k) * w[k] +
+          T(0.5) * this->at(kRho + k) * (dw * dw);
     }
     const T c1 = pij * pij + qij * qij + x[4];
     const T c2 = pji * pji + qji * qji + x[5];
     f = f + lam[0] * c1 + lam[1] * c2 + T(0.5) * mu * (c1 * c1 + c2 * c2);
-    return f * scale;
+    return f * this->at(kScale);
   }
 
-  __device__ __forceinline__ void cons(const T* x, T* c) const {
+  __device__ __forceinline__ void cons(const T* x, T* c) {
     T pij, qij, pji, qji;
     flows(x, pij, qij, pji, qji);
     c[0] = pij * pij + qij * qij + x[4];
@@ -104,15 +110,27 @@ struct BranchProblem {
     const T dl = (lam_new[0] - lam_old[0]) * c[0] +
                  (lam_new[1] - lam_old[1]) * c[1];
     const T dq = T(0.5) * (mu_new - mu_old) * (c[0] * c[0] + c[1] * c[1]);
-    return (dl + dq) * scale;
+    return (dl + dq) * this->at(kScale);
   }
 
-  // branch_fgh_linelimit without f: gradient g and packed Hessian H
+  // branch_fgh_linelimit without f: gradient g, and thread r's rows of the
+  // Hessian
   __device__ __forceinline__ void gh(const T* x, const T* lam, T mu, T* g,
-                                     T* H) const {
+                                     T (*Hr)[N], int r) {
+    const T YffR = this->at(0), YffI = this->at(1), YftR = this->at(2),
+            YftI = this->at(3), YttR = this->at(4), YttI = this->at(5),
+            YtfR = this->at(6), YtfI = this->at(7);
+    T l[8], rho[8], t[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      l[k] = this->at(kL + k);
+      rho[k] = this->at(kRho + k);
+      t[k] = this->at(kT + k);
+    }
+    const T scale = this->at(kScale);
     const T vi = x[0], vj = x[1], ti = x[2], tj = x[3], s1 = x[4], s2 = x[5];
-    const T c_ = dcos(ti - tj);
-    const T s_ = dsin(ti - tj);
+    T s_, c_;
+    angle(ti - tj, s_, c_);
     const T u1 = vi * vi, u2 = vj * vj;
     const T u3 = vi * vj * c_;
     const T u4 = vi * vj * s_;
@@ -277,6 +295,7 @@ struct BranchProblem {
                          mu * ((-u4) * kw2[2] + u3 * kw2[3]),
                          mu * (u4 * kw2[2] + (-u3) * kw2[3])};
 
+    T H[N * (N + 1) / 2];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -287,6 +306,7 @@ struct BranchProblem {
     H[sym(4, 4)] = mu * scale;
     H[sym(5, 5)] = mu * scale;
     H[sym(4, 5)] = T(0);
+    tron_alm::own_rows<N>(H, r, Hr);
   }
 };
 

@@ -1,4 +1,5 @@
-// QP-subproblem TRON/ALM batch: one reduced 6-variable line QP per thread.
+// QP-subproblem TRON/ALM batch: one reduced 6-variable line QP per thread
+// group.
 //
 // Replaces: exaadmm_tpu/ops/tron_pallas.py::tron_alm_batched_pallas for the
 // QP-subproblem instance (exaadmm_tpu/models/qpsub/model.py update_x: n = 6,
@@ -13,16 +14,14 @@
 //   g = (Gx + h0 + kap3 w3 + kap4 w4) scale,
 //   H = (G + mu (w3 w3' + w4 w4')) scale.
 // G is exactly symmetric (the model mirrors its lower triangle), so the
-// packed Hessian of tron_alm.cuh holds the same matrix the plain version
+// lower triangle the kernel reads holds the same matrix the plain version
 // reads in full. Every sum runs in index order, as in the plain version.
 //
-// What bounds it: registers. A lane has 43 parameters (21 of G's lower
-// triangle, h0, w3, w4, fc, e3, e4, scale); held beside the lane state, the
-// TRON temporaries and the Cholesky factor they would not fit in fp64. So
-// the problem struct keeps only the block pointer, the lane and B, and
-// obj / cons / gh read the parameters from global memory when they need
-// them. The block is (43, B) rows, so a warp's reads of one row are
-// contiguous, and a lane's 43 values stay in L1/L2 between reads.
+// The TRON/ALM body, its design and what bounds it are in tron_alm.cuh.
+// The lane's 43 parameters (21 of G's lower triangle, h0, w3, w4, fc, e3,
+// e4, scale) live once per lane in the body's shared memory. Every Hessian
+// row has the same formula, so gh computes on each thread of the group only
+// the thread's own rows, reading their parameters by row index.
 //
 // C interface (no PyTorch headers): tron_alm_qpsub_f64/_f32 and
 // error_string, each launch returning cudaGetLastError().
@@ -39,22 +38,13 @@ constexpr int kH0 = 21, kW3 = 27, kW4 = 33, kFc = 39, kE3 = 40, kE4 = 41,
               kScale = 42;
 
 template <typename T>
-struct QpsubProblem {
+struct QpsubProblem : tron_alm::LaneParams<T> {
   using Real = T;
   static constexpr int N = 6, NCON = 2, NPARAM = 43;
   static constexpr bool kExactAlmDelta = true;
 
-  const T* P;
-  int lane, B;
-
-  __device__ __forceinline__ void load(const T* P_, int lane_, int B_) {
-    P = P_;
-    lane = lane_;
-    B = B_;
-  }
-
   __device__ __forceinline__ T at(int row) const {
-    return __ldg(P + static_cast<size_t>(row) * B + lane);
+    return tron_alm::LaneParams<T>::at(row);
   }
 
   // Gx_i = G[i][0] x[0] + G[i][1] x[1] + ... in column order
@@ -105,9 +95,9 @@ struct QpsubProblem {
     return (dl + dq) * at(kScale);
   }
 
-  // qp_fgh without f: gradient g and packed Hessian H
+  // qp_fgh without f: gradient g, and thread r's rows of the Hessian
   __device__ __forceinline__ void gh(const T* x, const T* lam, T mu, T* g,
-                                     T* H) const {
+                                     T (*Hr)[N], int r) const {
     T c[2];
     cons(x, c);
     const T kap3 = lam[0] + mu * c[0];
@@ -117,11 +107,19 @@ struct QpsubProblem {
     gx(x, Gx);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const T w3i = at(kW3 + i), w4i = at(kW4 + i);
-      g[i] = (Gx[i] + at(kH0 + i) + kap3 * w3i + kap4 * w4i) * scale;
+      g[i] = (Gx[i] + at(kH0 + i) + kap3 * at(kW3 + i) + kap4 * at(kW4 + i)) *
+             scale;
+    }
 #pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        H[sym(i, j)] =
+    for (int m = 0; m < tron_alm::slots(N); ++m) {
+      // row i of the group's thread r (row m * kGroup where it does not
+      // exist; that row is never read)
+      const int i0 = r + m * tron_alm::kGroup;
+      const int i = i0 < N ? i0 : m * tron_alm::kGroup;
+      const T w3i = at(kW3 + i), w4i = at(kW4 + i);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        Hr[m][j] =
             (at(sym(i, j)) + mu * (w3i * at(kW3 + j) + w4i * at(kW4 + j))) *
             scale;
       }

@@ -2,8 +2,10 @@
 
 Counterpart of ``exaadmm_tpu/interface/solve_acopf.py`` (reference
 solve_acopf.jl): the same math arguments and defaults, plus ``device``.
-``device="cuda"`` runs the hand-written kernels and raises when no CUDA
-device is present; ``device="cpu"`` runs their plain PyTorch versions.
+``device`` defaults to ``"cuda"``, which runs the hand-written kernels and
+raises ``RuntimeError`` when no CUDA device is present (there is no
+fallback); ``device="cpu"``, asked for explicitly, runs their plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def solve_acopf(
     theta: float = 0.8,
     inc_c: float = 6.0,
     tron_step_cap: int | None = None,
-    device="cpu",
+    device="cuda",
     data: OPFData | None = None,
 ) -> SolveResult:
     """Solve a single-period ACOPF with two-level ADMM.

@@ -2,7 +2,8 @@
 
 Counterpart of ``exaadmm_tpu/interface/solve_mpacopf.py`` (reference
 solve_mpacopf.jl): the same arguments and defaults, plus ``device`` (as in
-``solve_acopf``), ``data`` (an already loaded or generated case) and
+``solve_acopf``: ``"cuda"`` by default, raising ``RuntimeError`` without a
+CUDA device; ``"cpu"`` runs the plain versions), ``data`` (an already loaded or generated case) and
 ``loads`` ((Pd, Qd) matrices in place of the ``<load_prefix>.Pd/.Qd``
 files).
 
@@ -63,7 +64,7 @@ def solve_mpacopf(
     load_scale: float = 1.0,
     use_projection: bool = False,
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
     data: OPFData | None = None,
     loads=None,
 ) -> MpacopfResult:

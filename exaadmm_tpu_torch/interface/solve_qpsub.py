@@ -4,7 +4,8 @@ Counterpart of ``exaadmm_tpu/interface/solve_qpsub.py`` (reference
 solve_qpsub.jl): the same positional QP data (Hs, the linearized
 constraint rows 1h/1i/1j/1k, delta bounds, shifted costs, residual loads)
 and keywords, solved by one-level ADMM, plus ``device`` and ``data`` (as in
-``solve_acopf``).
+``solve_acopf``: ``device`` is ``"cuda"`` by default and raises
+``RuntimeError`` without a CUDA device; ``"cpu"`` runs the plain versions).
 
 Not ported yet, and raising ``NotImplementedError``: ``onelevel=False``
 (the JAX package and the reference do not implement it either), ``mesh``
@@ -61,7 +62,7 @@ def solve_qpsub(
     pallas_tile: int = 1024,
     tron_step_cap: int | None = None,
     bus_backend: str = "auto",
-    device="cpu",
+    device="cuda",
     data: OPFData | None = None,
 ) -> QpsubResult:
     """Solve the QP subproblem of ``case`` (a MATPOWER file; pass ``data``,

@@ -7,7 +7,8 @@ against. B independent bound-constrained problems advance in lockstep
 through one state machine; each lane carries its own phase (TRON step, ALM
 round, done), and the loop runs until every lane has finished or
 ``step_cap`` steps have run. A lane's trajectory does not depend on the
-other lanes, which is what lets the kernel run one thread per lane instead.
+other lanes, which is what lets the kernel run each lane on its own group of
+threads instead.
 
 Layout: iterates are (n, B), Hessians (n, n, B), parameters (..., B).
 Reductions over the n rows run in row order, one add at a time, so the

@@ -12,10 +12,11 @@ three problem instances, which share one CUDA body (``csrc/tron_alm.cuh``):
   of ``models/qpsub/model.py``, ``branch_alm_delta``): ``tron_alm_qpsub``,
   ``csrc/tron_alm_qpsub.cu``.
 
-On a CUDA tensor a wrapper runs its kernel, one thread per lane, each thread
-the lane's own loop of the lockstep state machine; on a CPU tensor it runs
-the plain version ``ops/tron.py::tron_alm_batched`` with the instance's
-functions; any other device raises.
+On a CUDA tensor a wrapper runs its kernel, one group of threads per lane
+(``tron_alm::kGroup``), each group the lane's own loop of the lockstep state
+machine; on a CPU tensor it runs the plain version
+``ops/tron.py::tron_alm_batched`` with the instance's functions; any other
+device raises.
 
 ``launches`` counts the branch kernel's launches, ``ramp_launches`` the ramp
 kernel's and ``qpsub_launches`` the QP-subproblem kernel's.

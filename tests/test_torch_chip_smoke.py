@@ -45,12 +45,46 @@ def test_rehearsal_on_cpu(case9_path, capsys):
                      "bus_scatter"]
     for k in res["kernels"]:
         assert set(k) == {"name", "route", "source", "replaces", "launches",
-                          "max_abs_err", "ms", "plain_ms"}
+                          "max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms", "device_ms",
+                          "enqueue_ms"}
+        assert k["bound_by"] in ("bytes", "operations")
+        assert k["bound_ms"] > 0.0
+        assert (k["library_ms"] is None) == (k["name"] != "bus_scatter")
         assert os.path.isfile(os.path.join(ROOT, k["source"]))
         path, line = k["replaces"].split(":")
         with open(os.path.join(ROOT, path)) as f:
             assert "def " in f.read().splitlines()[int(line) - 1]
     json.dumps(res["kernels"])
+
+
+def test_bounds_at_synth_9241():
+    """The bound helper's byte counts at the shapes of synthetic 9241 buses
+    (15,710 lines, so 31,420 arcs): the single-period scatter reads 2.01 MB
+    of arc values, 0.13 MB of idx and 0.04 MB of ptr and writes 0.59 MB; a
+    branch TRON lane reads 54 values and a flag and writes 10 values and two
+    ints, 521 B; the scatter folded over 8 periods of synthetic 2869 buses
+    (4,877 lines) moves 6.5 MB."""
+    from exaadmm_tpu_torch.ops import bounds
+    from exaadmm_tpu_torch.utils.synthetic import synthetic_case
+
+    data = synthetic_case(9241, seed=0, line_ratio=1.7)
+    assert (data.nbus, data.nline) == (9241, 15710)
+    nb = bounds.scatter_bytes(2 * data.nline, data.nbus, 8, 8)
+    assert nb == {"vals": 2_010_880, "idx": 125_680, "ptr": 36_968,
+                  "out": 591_424, "total": 2_764_952}
+    ms, by = bounds.bound(nb["total"], bounds.scatter_ops(2 * data.nline, 8))
+    assert by == "bytes" and ms == pytest.approx(2_764_952 / 3.35e9)
+    nt = bounds.tron_bytes("tron_alm_branch", data.nline, 8)
+    assert nt["total"] == 521 * data.nline == 8_184_910
+    assert bounds.tron_bytes("tron_alm_branch", 1, 4)["total"] == 265
+    assert bounds.scatter_bytes(2 * 4877, 2869, 64, 8)["total"] == 6_513_472
+    # operations grow with the steps the lanes took
+    few = bounds.tron_ops("tron_alm_branch", 15710, 15710, 15710)
+    many = bounds.tron_ops("tron_alm_branch", 84807, 27335, 15710)
+    assert 0 < few < many
+    assert bounds.step_ops("tron_alm_ramp") < bounds.step_ops(
+        "tron_alm_qpsub") < bounds.step_ops("tron_alm_branch")
 
 
 def test_script_refuses_without_cuda():

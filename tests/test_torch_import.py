@@ -48,6 +48,39 @@ def test_cuda_device_without_cuda_raises(case9_path):
         exaadmm_tpu_torch.solve_acopf(case9_path, verbose=0, device="cuda")
 
 
+def _default_device_call(name, case9_path):
+    """A call of entry point ``name`` that leaves ``device`` to its
+    default."""
+    if name == "solve_acopf":
+        return lambda: exaadmm_tpu_torch.solve_acopf(case9_path, verbose=0)
+    if name == "solve_mpacopf":
+        return lambda: exaadmm_tpu_torch.solve_mpacopf(
+            case9_path, os.path.join(ROOT, "data", "case9_demand"),
+            end_period=2, verbose=0)
+    from exaadmm_tpu_torch.models.qpsub.model import QP_KEYS
+    from exaadmm_tpu_torch.models.qpsub.sqp import (SqpBasePoint,
+                                                    build_qp_inputs)
+    from exaadmm_tpu_torch.utils.grid_data import build_grid_data
+    from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
+    data = opf_loaddata(case9_path, verbose=0)
+    qp = build_qp_inputs(data, build_grid_data(data), SqpBasePoint(
+        pg=data.Pg0, qg=data.Qg0, vm=data.Vm, va=data.Va))
+    return lambda: exaadmm_tpu_torch.solve_qpsub(
+        case9_path, *[qp[k] for k in QP_KEYS], verbose=0)
+
+
+@pytest.mark.parametrize("name", ["solve_acopf", "solve_mpacopf",
+                                  "solve_qpsub"])
+def test_entry_points_default_to_cuda(name, case9_path):
+    """With no ``device`` an entry point asks for the card, so without one
+    it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    call = _default_device_call(name, case9_path)
+    with pytest.raises(RuntimeError, match="device='cuda' asked for"):
+        call()
+
+
 def test_wrappers_refuse_other_devices():
     vals = torch.zeros((4, 8), device="meta")
     ids = torch.zeros(4, dtype=torch.int64, device="meta")
@@ -75,14 +108,15 @@ def test_cpu_wrappers_launch_no_kernel(case9_path):
     bus_cuda.launches = tron_cuda.launches = tron_cuda.ramp_launches = 0
     tron_cuda.qpsub_launches = 0
     exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
-                                  inner_iterlim=2, verbose=0)
+                                  inner_iterlim=2, verbose=0, device="cpu")
     exaadmm_tpu_torch.solve_mpacopf(
         case9_path, os.path.join(ROOT, "data", "case9_demand"), end_period=2,
-        outer_iterlim=1, inner_iterlim=2, warm_start=False, verbose=0)
+        outer_iterlim=1, inner_iterlim=2, warm_start=False, verbose=0,
+        device="cpu")
     data = opf_loaddata(case9_path, verbose=0)
     qp = build_qp_inputs(data, build_grid_data(data), SqpBasePoint(
         pg=data.Pg0, qg=data.Qg0, vm=data.Vm, va=data.Va))
     exaadmm_tpu_torch.solve_qpsub(case9_path, *[qp[k] for k in QP_KEYS],
-                                  outer_iterlim=2, verbose=0)
+                                  outer_iterlim=2, verbose=0, device="cpu")
     assert bus_cuda.launches == 0 and tron_cuda.launches == 0
     assert tron_cuda.ramp_launches == 0 and tron_cuda.qpsub_launches == 0

@@ -21,7 +21,7 @@ from .test_torch_threads import one_torch_thread  # noqa: F401
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMAND = os.path.join(ROOT, "data", "case9_demand")
 KW = dict(start_period=1, end_period=3, rho_pq=4e2, rho_va=4e4,
-          outer_eps=2e-4, verbose=0)
+          outer_eps=2e-4, verbose=0, device="cpu")
 
 
 def test_no_warm_start_hits_the_pins(case9_path):
@@ -55,7 +55,7 @@ def test_generated_case_and_loads_run():
     res = exaadmm_tpu_torch.solve_mpacopf(
         data.case, data=data, loads=synthetic_load_profile(data, 2),
         end_period=2, outer_iterlim=1, inner_iterlim=3, warm_start=False,
-        verbose=0, dtype=torch.float32)
+        verbose=0, dtype=torch.float32, device="cpu")
     assert res.info.cumul == 3
     assert res.solution.acopf.u.line.shape == (2, data.nline, 8)
     assert res.solution.acopf.u.line.dtype == torch.float32
@@ -65,7 +65,8 @@ def test_generated_case_and_loads_run():
 def test_projection_is_not_ported(case9_path):
     with pytest.raises(NotImplementedError):
         exaadmm_tpu_torch.solve_mpacopf(case9_path, DEMAND, end_period=2,
-                                        verbose=0, use_projection=True)
+                                        verbose=0, use_projection=True,
+                                        device="cpu")
 
 
 def test_cuda_device_without_cuda_raises(case9_path):

@@ -26,7 +26,7 @@ from .test_torch_threads import one_torch_thread  # noqa: F401
 PIN_ITERS, PIN_OBJ = 5107, -21.92744641968529
 PIN_KW = dict(outer_iterlim=10000, inner_iterlim=1, scale=1e-4,
               obj_scale=1.0, rho_pq=4000.0, rho_va=4000.0, outer_eps=2e-6,
-              onelevel=True)
+              onelevel=True, device="cpu")
 
 
 def _args():
@@ -78,7 +78,7 @@ def test_poststep_matches_jax(pin_result):
 ])
 def test_unported_options_raise(case9_path, kw, match):
     with pytest.raises(NotImplementedError, match=match):
-        E.solve_qpsub(case9_path, *_args(), verbose=0, **kw)
+        E.solve_qpsub(case9_path, *_args(), verbose=0, device="cpu", **kw)
 
 
 def test_cuda_device_without_cuda_raises(case9_path):
@@ -92,7 +92,7 @@ def test_verbose_prints_every_50th_iteration(case9_path, capsys):
     res = E.solve_qpsub(case9_path, *_args(), verbose=1, outer_iterlim=60,
                         rho_pq=4000.0, rho_va=4000.0,
                         branch_backend="pallas", pallas_tile=256,
-                        bus_backend="kr")
+                        bus_backend="kr", device="cpu")
     rows = [ln.split() for ln in capsys.readouterr().out.splitlines()]
     iters = [int(r[0]) for r in rows if r and r[0].isdigit()]
     assert iters == [1, 51]
@@ -104,7 +104,8 @@ def test_fp32_solve_runs(case9_path):
     """An fp32 solve runs the same path (the wrapper's tolerances floor at
     the dtype's epsilon) and ends finite."""
     res = E.solve_qpsub(case9_path, *_args(), verbose=0, outer_iterlim=200,
-                        rho_pq=4000.0, rho_va=4000.0, dtype=torch.float32)
+                        rho_pq=4000.0, rho_va=4000.0, dtype=torch.float32,
+                        device="cpu")
     assert res.solution.base.u.line.dtype == torch.float32
     assert np.isfinite(res.info.objval) and np.isfinite(res.info.mismatch)
     _, jm = _models("case9")

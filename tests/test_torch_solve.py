@@ -80,7 +80,7 @@ def test_three_outer_iterations_match_jax(case9_path):
     kw = dict(rho_pq=RHO_PQ, rho_va=RHO_VA, outer_eps=2e-5, outer_iterlim=3,
               verbose=0)
     ref = exaadmm_tpu.solve_acopf(case9_path, **kw).info
-    got = exaadmm_tpu_torch.solve_acopf(case9_path, **kw).info
+    got = exaadmm_tpu_torch.solve_acopf(case9_path, device="cpu", **kw).info
     assert (got.outer, got.inner, got.cumul) == (ref.outer, ref.inner,
                                                  ref.cumul)
     assert got.status == ref.status
@@ -92,7 +92,7 @@ def test_three_outer_iterations_match_jax(case9_path):
 def test_case9_full_solve_hits_the_pins(case9_path):
     res = exaadmm_tpu_torch.solve_acopf(
         case9_path, outer_iterlim=25, rho_pq=RHO_PQ, rho_va=RHO_VA,
-        outer_eps=2e-5, verbose=0)
+        outer_eps=2e-5, verbose=0, device="cpu")
     info = res.info
     assert info.status == "Solved"
     assert 5296.0 <= info.objval <= 5304.5
@@ -106,7 +106,8 @@ def test_case9_full_solve_hits_the_pins(case9_path):
 
 def test_verbose_prints_one_line_per_outer(case9_path, capsys):
     res = exaadmm_tpu_torch.solve_acopf(
-        case9_path, outer_iterlim=2, rho_pq=RHO_PQ, rho_va=RHO_VA, verbose=1)
+        case9_path, outer_iterlim=2, rho_pq=RHO_PQ, rho_va=RHO_VA, verbose=1,
+        device="cpu")
     lines = capsys.readouterr().out.splitlines()
     head = [i for i, ln in enumerate(lines) if ln.split()[:2] == ["Outer",
                                                                    "Inner"]]
@@ -119,7 +120,7 @@ def test_verbose_prints_one_line_per_outer(case9_path, capsys):
 def test_fp32_solve_runs(case9_path):
     res = exaadmm_tpu_torch.solve_acopf(
         case9_path, outer_iterlim=2, rho_pq=RHO_PQ, rho_va=RHO_VA,
-        verbose=0, dtype=torch.float32)
+        verbose=0, dtype=torch.float32, device="cpu")
     assert res.solution.u.line.dtype == torch.float32
     assert np.isfinite(res.info.mismatch)
 
@@ -127,4 +128,5 @@ def test_fp32_solve_runs(case9_path):
 def test_no_linelimit_is_not_ported(case9_path):
     with pytest.raises(NotImplementedError):
         exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
-                                      verbose=0, use_linelimit=False)
+                                      verbose=0, use_linelimit=False,
+                                      device="cpu")
