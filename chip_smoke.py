@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile] [--solve]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or /usr/local/cuda) and
-``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the four
+``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the five
 kernels of the main paths from ``exaadmm_tpu_torch/csrc`` (one nvcc process
 per source, all at once) and runs, in order:
 
@@ -22,6 +22,9 @@ per source, all at once) and runs, in order:
    the generator values with the ramp terms blended in: bit-identical to 8
    single-period kernel calls, and within phase 1's thresholds of
    ``index_add_``;
+1c. the MPEC bus update's three scatters on phase 7's model (arc sums,
+   generator sums with vg's two channels, storage sums over the bus ->
+   storage CSR), fp64, with phase 1's thresholds;
 2. the branch TRON/ALM kernel against its plain version on that grid's
    15,710-line batch at the first inner iteration, prox targets perturbed
    from a numpy seed, both at step_cap 50: iteration counts equal on
@@ -44,6 +47,8 @@ per source, all at once) and runs, in order:
    ``one_level_reset``, l and v of the lines perturbed by N(0, 0.05) from a
    numpy seed, step_cap 50, with phase 2's thresholds; then the same without
    line limits;
+2d. the polar TRON kernel (the branch without line limits, no
+   constraints) against its plain version on phase 2's grid and setup;
 3. case9 end to end through ``solve_acopf(..., device="cuda")``, fp64:
    Solved, objective and dispatch in the known bands, outer/cumul beside the
    pins 25/1087 (within 1 outer and 2 %), one TRON launch per inner
@@ -60,39 +65,58 @@ per source, all at once) and runs, in order:
    cumul within 2 % of the pin 5107, objective within 1e-6 relative of
    -21.92744641968529, the SQP outputs' shapes and signs, one QP-subproblem
    TRON launch and two bus launches per iteration;
+3d. case9 without line limits through ``solve_acopf(..., use_linelimit=
+   False)``: Solved within 1 outer and 2 % of the pins 20/973, one polar
+   launch and no branch launch per inner iteration;
+3e. case9 MPEC through ``solve_acopf_mpec``, without storage and with
+   storage at 30 % of the buses: Solved within 1 outer and 2 % of the pins
+   23/1401 and 12/1073, objective within 1e-6 relative, one branch launch
+   and two (three with storage) bus launches per inner iteration;
+3f. case9 rolling horizon, periods 1-3, through ``solve_acopf_rolling``:
+   every period Solved within 1 outer and 2 % of its pin; then case9 with
+   ``use_projection=True``: power-flow residual <= 1e-6 and every line copy
+   of a bus's w equal;
 4. the single-period main path at full size: synthetic 9241 buses, fp64,
-   flat start at rho (3e3, 3e5), 3 outer x 100 inner iterations: inner
+   flat start at rho (3e3, 3e5), 3 outer iterations of at most 100 inner
+   (each outer ends when primres reaches its eps, about 20 inner): inner
    iterations per second of the ADMM loop (``info.time_overall``, after the
    model is built) and of the whole call, the final mismatch and the peak
    device memory;
 5. the multi-period main path at full width: synthetic 2869 buses (4,877
    lines, 430 generators), 8 periods of the load profile
-   ``synthetic_load_profile``, fp64, flat start at rho (4e2, 4e4), 3 outer x
-   50 inner iterations with outer_eps 0: the same rates as phase 4, the
+   ``synthetic_load_profile``, fp64, flat start at rho (4e2, 4e4), 3 outer
+   iterations of at most 50 inner with outer_eps 0: the same rates as phase 4, the
    final mismatch, the ramp violation and the peak device memory;
 6. the one-level QP-subproblem path at full width: the synthetic 9241-bus
    QP of phase 2c through ``solve_qpsub``, fp64, rho (4e3, 4e3),
    tron_step_cap 24, outer_eps 0, 200 iterations: iterations per second of
    the ADMM loop and of the whole call, the final mismatch, the peak device
-   memory and the launch counts.
+   memory and the launch counts;
+7. the MPEC path at full width: synthetic 9241 buses with storage at a
+   tenth of the buses (925 units, charge limit 0.1), droop 0.04, fp64, rho
+   (3e3, 3e5), 10 outer iterations of at most 100 inner, outer_eps 0:
+   phase 4's rates and figures;
+8. phase 4's configuration without line limits (the polar kernel), over
+   10 outer iterations like phase 7: the same report.
 
-The kernels' launch counters are zeroed just before phases 4, 5 and 6 and
-read just after each; the ``launches`` of a kernel in the JSON line are the
-sum over those three runs.
+The kernels' launch counters are zeroed just before phases 4, 5, 6, 7 and
+8 and read just after each; the ``launches`` of a kernel in the JSON line
+are the sum over those five runs.
 
-``--profile`` adds a breakdown of one iteration of phase 4's, phase 5's and
-phase 6's configuration (host time per hook, device time by kernel, idle
-share); ``--solve`` adds the time to tolerance of phase 4's configuration.
+``--profile`` adds a breakdown of one iteration of the configurations of
+phases 4 to 8 (host time per hook, device time by kernel, idle share);
+``--solve`` adds the time to tolerance of phase 4's configuration.
 
 Each phase prints one line of numbers; any failure raises, so the script
 exits non-zero and prints no result. The line before the last is one JSON
 object with each kernel's numbers (phase 1's fp64 scatter and phase 2's,
-2b's and 2c's fp64 batches): ``ms`` and ``device_ms`` the device time per
+2b's, 2c's and 2d's fp64 batches): ``ms`` and ``device_ms`` the device time per
 launch, ``enqueue_ms`` the host's time per call, ``plain_ms`` the plain
 version's, ``bound_ms`` and ``bound_by`` the least time for the bytes and
 operations of that launch, and ``library_ms`` ``index_add_``'s device time
 for the scatter (null for the TRON instances, which no library call
-computes); the last line is ``{"ok": true, "device": {...}}``.
+computes; the polar one's ``replaces`` names the JAX line that runs it as
+plain XLA, since no TPU kernel does); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -110,6 +134,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CASE9 = os.path.join(ROOT, "data", "case9.m")
 DEMAND9 = os.path.join(ROOT, "data", "case9_demand")
 PIN_OUTER, PIN_CUMUL = 25, 1087
+POLAR_PIN_OUTER, POLAR_PIN_CUMUL = 20, 973
+# (outer, cumul, objective) of the JAX package on the CPU, fp64
+MPEC_PINS = {"without storage": (23, 1401, 5329.132434858213),
+             "with storage": (12, 1073, 4936.875393666981)}
+ROLLING_PINS = ((20, 973, 5286.652017310178), (9, 166, 5403.734908384519),
+                (7, 91, 5355.780080975317))
+# the MPEC storage of phase 7 and --profile
+MPEC_STORAGE = dict(storage_ratio=0.1, storage_charge_max=0.1, droop=0.04)
 MP_PIN_OUTER, MP_PIN_CUMUL, MP_PIN_OBJ = 20, 1007, 16015.6958770167
 QP_PIN_ITERS, QP_PIN_OBJ = 5107, -21.92744641968529
 QP_ITERS = 200
@@ -122,6 +154,10 @@ KERNEL_SOURCES = {
                        "exaadmm_tpu/ops/tron_pallas.py:42"),
     "bus_scatter": ("exaadmm_tpu_torch/csrc/bus_scatter.cu",
                     "exaadmm_tpu/ops/bus_pallas.py:42"),
+    # no TPU kernel: the JAX package runs this batch as plain XLA
+    "tron_alm_polar": ("exaadmm_tpu_torch/csrc/tron_alm_polar.cu",
+                       "exaadmm_tpu/models/acopf/branch.py:480 "
+                       "(tron_batched; no Pallas)"),
 }
 
 
@@ -133,6 +169,24 @@ def _sync(dev):
 def _check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
+
+
+def _zero_launches():
+    """Set every kernel's launch count to 0."""
+    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
+    tron_cuda.launches = tron_cuda.ramp_launches = 0
+    tron_cuda.qpsub_launches = tron_cuda.polar_launches = 0
+    bus_cuda.launches = 0
+
+
+def _launches() -> dict:
+    """Every kernel's launch count, by kernel name."""
+    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
+    return {"tron_alm_branch": tron_cuda.launches,
+            "tron_alm_ramp": tron_cuda.ramp_launches,
+            "tron_alm_qpsub": tron_cuda.qpsub_launches,
+            "tron_alm_polar": tron_cuda.polar_launches,
+            "bus_scatter": bus_cuda.launches}
 
 
 def phase0_device(dev, on_card: bool) -> dict:
@@ -154,6 +208,7 @@ def phase0_device(dev, on_card: bool) -> dict:
         tron_cuda.library(tron_cuda.BRANCH)
         tron_cuda.library(tron_cuda.RAMP)
         tron_cuda.library(tron_cuda.QPSUB)
+        tron_cuda.library(tron_cuda.POLAR)
         bus_cuda.library()
         print(f"phase 0: built {len(KERNEL_SOURCES)} kernels in parallel in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -166,6 +221,28 @@ def phase0_device(dev, on_card: bool) -> dict:
             for ln in log:
                 print(f"  {ln}")
     return info
+
+
+def _hold_scatter(sums, tol: float, label: str):
+    """Run the scatter kernel twice and its plain version once on each
+    (values, ids, ptr, idx) of ``sums``: the two runs bit-identical, the
+    max relative difference per channel (over the channel's largest
+    magnitude) <= ``tol``. Returns (max relative, max absolute) difference."""
+    from exaadmm_tpu_torch.ops import bus_cuda
+
+    worst_rel, worst_abs = 0.0, 0.0
+    for vals, ids, ptr, idx in sums:
+        got = bus_cuda.bus_scatter(vals, ids, ptr, idx)
+        again = bus_cuda.bus_scatter(vals, ids, ptr, idx)
+        ref = bus_cuda.bus_scatter_plain(vals, ids, ptr.shape[0] - 1)
+        _check(bool(torch.equal(got, again)), f"{label}: two runs differ")
+        diff = (got - ref).abs()
+        scale = ref.abs().amax(dim=0).clamp_min(torch.finfo(vals.dtype).tiny)
+        worst_rel = max(worst_rel, float((diff.amax(dim=0) / scale).max()))
+        worst_abs = max(worst_abs, float(diff.max()))
+    _check(worst_rel <= tol,
+           f"{label}: rel diff {worst_rel:.3e} > {tol:.0e}")
+    return worst_rel, worst_abs
 
 
 def phase1_bus(dev, data, on_card: bool) -> dict:
@@ -183,23 +260,10 @@ def phase1_bus(dev, data, on_card: bool) -> dict:
         gd = model.grid
         arcs = kernels.bus_arc_values(sol.v, sol.z, sol.l, sol.rho, gd)
         gens = kernels.bus_gen_values(sol.v, sol.z, sol.l, sol.rho)
-        worst_rel, worst_abs = 0.0, 0.0
-        for vals, ids, ptr, idx in ((arcs, gd.arc_bus, gd.arc_ptr,
-                                     gd.arc_idx),
-                                    (gens, gd.gen_bus, gd.gen_ptr,
-                                     gd.gen_idx)):
-            got = bus_cuda.bus_scatter(vals, ids, ptr, idx)
-            again = bus_cuda.bus_scatter(vals, ids, ptr, idx)
-            ref = bus_cuda.bus_scatter_plain(vals, ids, ptr.shape[0] - 1)
-            _check(bool(torch.equal(got, again)),
-                   "bus_scatter: two runs differ")
-            diff = (got - ref).abs()
-            scale = ref.abs().amax(dim=0).clamp_min(
-                torch.finfo(dtype).tiny)
-            worst_rel = max(worst_rel, float((diff.amax(dim=0) / scale).max()))
-            worst_abs = max(worst_abs, float(diff.max()))
-        _check(worst_rel <= tol,
-               f"bus_scatter {dtype}: rel diff {worst_rel:.3e} > {tol:.0e}")
+        worst_rel, worst_abs = _hold_scatter(
+            ((arcs, gd.arc_bus, gd.arc_ptr, gd.arc_idx),
+             (gens, gd.gen_bus, gd.gen_ptr, gd.gen_idx)),
+            tol, f"bus_scatter {dtype}")
         (ms, enq), (lib_ms, lib_enq) = time_pair(
             lambda: bus_cuda.bus_scatter(arcs, gd.arc_bus, gd.arc_ptr,
                                          gd.arc_idx),
@@ -310,6 +374,43 @@ def phase2_tron(dev, data, on_card: bool) -> dict:
         key = "f64" if dtype == torch.float64 else "f32"
         out[key] = _tron_vs_plain("phase 2: tron_alm_branch",
                                   "tron_alm_branch", kernel, plain, act,
+                                  dtype, dev)
+    return out
+
+
+def phase2d_polar(dev, data, on_card: bool) -> dict:
+    """Phase 2's check on the polar batch (no line limits) of the same
+    grid: 4 variables a line, no constraints."""
+    from exaadmm_tpu_torch.models.acopf import branch
+    from exaadmm_tpu_torch.models.acopf import model as M
+    from exaadmm_tpu_torch.ops import tron_cuda
+    from exaadmm_tpu_torch.utils.environment import Parameters
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        par = Parameters(verbose=0, tron_step_cap=50)
+        model = M.build_model(data, par, use_linelimit=False, dtype=dtype,
+                              device=dev)
+        sol = M.init_solution(model, 4e2, 4e4)
+        rng = np.random.default_rng(0)
+        noise = torch.as_tensor(rng.normal(0, 0.05, tuple(sol.v.line.shape)))
+        sol = sol.replace(v=sol.v.replace(
+            line=sol.v.line + noise.to(device=dev, dtype=dtype)))
+        x0, xl, xu, params, lam0, mu0, act = branch.polar_inputs(
+            sol, model.grid, par)
+        opts = branch.polar_tolerances(par, dtype)
+
+        def kernel():
+            return tron_cuda.tron_alm_polar(x0, xl, xu, params, lam0, mu0,
+                                            active0=act, **opts)
+
+        def plain():
+            return tron_cuda.tron_alm_polar_plain(
+                x0, xl, xu, params, lam0, mu0, active0=act, **opts)
+
+        key = "f64" if dtype == torch.float64 else "f32"
+        out[key] = _tron_vs_plain("phase 2d: tron_alm_polar",
+                                  "tron_alm_polar", kernel, plain, act,
                                   dtype, dev)
     return out
 
@@ -435,6 +536,44 @@ def phase1b_bus_periods(dev, data, loads, T: int, on_card: bool) -> dict:
     return out
 
 
+def phase1c_bus_mpec(dev, data, on_card: bool) -> dict:
+    """The MPEC bus update's three scatters on phase 7's model: the arc
+    sums, the generator sums with vg's two channels and the storage sums
+    over the bus -> storage CSR, from ``init_solution`` with u and l
+    perturbed from a numpy seed, fp64, with phase 1's thresholds."""
+    from exaadmm_tpu_torch.interface.solve_mpec import build_model
+    from exaadmm_tpu_torch.models.acopf.kernels import bus_arc_values
+    from exaadmm_tpu_torch.models.mpec import model as MM
+    from exaadmm_tpu_torch.utils.environment import Parameters
+
+    model = build_model(data, Parameters(verbose=0), **MPEC_STORAGE,
+                        device=dev)
+    gd, st = model.grid, model.storage
+    sol = MM.init_solution(model, 3e3, 3e5)
+    rng = np.random.default_rng(2)
+
+    def perturb(a):
+        return a + torch.as_tensor(rng.normal(0, 0.05, tuple(a.shape))).to(
+            device=dev, dtype=a.dtype)
+
+    u, l = MM.mpec_map(perturb, sol.u), MM.mpec_map(perturb, sol.l)
+    sums = {
+        "arcs": (bus_arc_values(u, sol.z, l, sol.rho, gd), gd.arc_bus,
+                 gd.arc_ptr, gd.arc_idx),
+        "gens": (MM.gen_values(u, sol.z, l, sol.rho), gd.gen_bus, gd.gen_ptr,
+                 gd.gen_idx),
+        "storage": (MM.storage_values(u, sol.z, l, sol.rho), st.bus, st.ptr,
+                    st.idx),
+    }
+    rel, worst_abs = _hold_scatter(sums.values(), 1e-13,
+                                   "bus_scatter MPEC f64")
+    print("phase 1c: bus_scatter MPEC f64 "
+          + ", ".join(f"{k} {tuple(v[0].shape)}" for k, v in sums.items())
+          + f" -> {gd.nbus} buses: max rel diff {rel:.3e} (tol 1e-13), max "
+          f"abs diff {worst_abs:.3e}, bit-identical reruns")
+    return {"f64": dict(rel=rel, abs=worst_abs)}
+
+
 def phase2b_ramp(dev, data, loads, T: int, on_card: bool) -> dict:
     from exaadmm_tpu_torch.models.mpacopf import model as MP
     from exaadmm_tpu_torch.models.mpacopf import ramp
@@ -531,7 +670,7 @@ def phase3_case9(dev, on_card: bool) -> dict:
     import exaadmm_tpu_torch as E
     from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
-    tron_cuda.launches = bus_cuda.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     res = E.solve_acopf(CASE9, rho_pq=4e2, rho_va=4e4, outer_eps=2e-5,
                         outer_iterlim=25, verbose=0, device=dev)
@@ -560,57 +699,90 @@ def phase3_case9(dev, on_card: bool) -> dict:
                 seconds=secs)
 
 
-def phase4_main(dev, data, on_card: bool) -> dict:
+def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
+                label: str = "phase 4", outer_iterlim: int = 3) -> dict:
+    """The single-period path at full size; without line limits (phase 8)
+    every line is a lane of the polar kernel instead of the branch one."""
     import exaadmm_tpu_torch as E
-    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
-    tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
-    tron_cuda.qpsub_launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     res = E.solve_acopf(data.case, data=data, rho_pq=3e3, rho_va=3e5,
-                        outer_iterlim=3, inner_iterlim=100, outer_eps=0.0,
-                        verbose=0, device=dev)
+                        outer_iterlim=outer_iterlim, inner_iterlim=100,
+                        outer_eps=0.0, use_linelimit=use_linelimit, verbose=0,
+                        device=dev)
     _sync(dev)
     secs = time.perf_counter() - t0
-    launches = {"tron_alm_branch": tron_cuda.launches,
-                "tron_alm_ramp": tron_cuda.ramp_launches,
-                "tron_alm_qpsub": tron_cuda.qpsub_launches,
-                "bus_scatter": bus_cuda.launches}
+    launches = _launches()
     info = res.info
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     rate = info.cumul / info.time_overall
-    print(f"phase 4: {data.case} ({data.nbus} buses, {data.nline} lines, "
-          f"{data.ngen} gens) fp64: {info.outer} outer, {info.cumul} inner; "
-          f"ADMM loop {info.time_overall:.3f} s = {rate:.2f} inner it/s, "
-          f"whole call with setup {secs:.3f} s = {info.cumul / secs:.2f} "
-          f"inner it/s; mismatch "
+    what = "" if use_linelimit else ", no line limits"
+    print(f"{label}: {data.case} ({data.nbus} buses, {data.nline} lines, "
+          f"{data.ngen} gens{what}) fp64: {info.outer} outer, {info.cumul} "
+          f"inner; ADMM loop {info.time_overall:.3f} s = {rate:.2f} inner "
+          f"it/s, whole call with setup {secs:.3f} s = "
+          f"{info.cumul / secs:.2f} inner it/s; mismatch "
           f"{info.mismatch!r} primres {info.primres!r} obj {info.objval!r}; "
           f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
     for name in ("mismatch", "primres", "dualres", "objval", "norm_z_curr"):
         _check(bool(np.isfinite(getattr(info, name))),
-               f"main path: {name} not finite")
+               f"{label}: {name} not finite")
     _check(bool(torch.isfinite(res.solution.u.line).all()),
-           "main path: u not finite")
+           f"{label}: u not finite")
     if on_card:
-        _check(launches["tron_alm_branch"] == info.cumul
-               and launches["tron_alm_ramp"] == 0
-               and launches["tron_alm_qpsub"] == 0,
-               f"main path: TRON launches {launches}")
+        lane = "tron_alm_branch" if use_linelimit else "tron_alm_polar"
+        _check(launches[lane] == info.cumul
+               and sum(launches.values()) == launches[lane]
+               + launches["bus_scatter"],
+               f"{label}: TRON launches {launches}")
         _check(launches["bus_scatter"] == 2 * info.cumul,
-               f"main path: bus launches {launches}")
+               f"{label}: bus launches {launches}")
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, peak=peak)
+
+
+def phase3d_case9_polar(dev, on_card: bool) -> dict:
+    """case9 without line limits: the polar kernel, once per inner
+    iteration, and no branch kernel."""
+    import exaadmm_tpu_torch as E
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = E.solve_acopf(CASE9, rho_pq=4e2, rho_va=4e4, outer_eps=2e-4,
+                        outer_iterlim=25, use_linelimit=False, verbose=0,
+                        device=dev)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    info = res.info
+    launches = _launches()
+    print(f"phase 3d: case9 without line limits {info.status} outer "
+          f"{info.outer} (pin {POLAR_PIN_OUTER}) cumul {info.cumul} (pin "
+          f"{POLAR_PIN_CUMUL}) obj {info.objval!r} in {secs:.2f} s; launches "
+          f"{launches}")
+    _check(info.status == "Solved", f"case9 polar: status {info.status}")
+    _check(abs(info.outer - POLAR_PIN_OUTER) <= 1,
+           f"case9 polar: outer {info.outer}")
+    _check(abs(info.cumul - POLAR_PIN_CUMUL) <= 0.02 * POLAR_PIN_CUMUL,
+           f"case9 polar: cumul {info.cumul}")
+    _check(info.max_cviol == 0.0, f"case9 polar: cviol {info.max_cviol}")
+    if on_card:
+        _check(launches["tron_alm_polar"] == info.cumul
+               and launches["tron_alm_branch"] == 0,
+               f"case9 polar: launches {launches} for {info.cumul} inner "
+               f"iterations")
+    return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
+                seconds=secs)
 
 
 def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
     import exaadmm_tpu_torch as E
     from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
-    tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
-    tron_cuda.qpsub_launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     res = E.solve_mpacopf(CASE9, DEMAND9, start_period=1, end_period=3,
                           rho_pq=4e2, rho_va=4e4, outer_iterlim=30,
@@ -641,7 +813,7 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
                f"case9 mp: {bus_cuda.launches} bus launches")
 
     # one period: no ramp batch, so no ramp launch
-    tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
+    _zero_launches()
     one = E.solve_mpacopf(CASE9, DEMAND9, end_period=1, outer_iterlim=1,
                           inner_iterlim=5, warm_start=False, verbose=0,
                           device=dev)
@@ -663,13 +835,11 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
 
 def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
     import exaadmm_tpu_torch as E
-    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
-    tron_cuda.launches = tron_cuda.ramp_launches = bus_cuda.launches = 0
-    tron_cuda.qpsub_launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     res = E.solve_mpacopf(data.case, data=data, loads=loads, end_period=T,
                           rho_pq=4e2, rho_va=4e4, outer_iterlim=3,
@@ -677,10 +847,7 @@ def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
                           verbose=0, device=dev)
     _sync(dev)
     secs = time.perf_counter() - t0
-    launches = {"tron_alm_branch": tron_cuda.launches,
-                "tron_alm_ramp": tron_cuda.ramp_launches,
-                "tron_alm_qpsub": tron_cuda.qpsub_launches,
-                "bus_scatter": bus_cuda.launches}
+    launches = _launches()
     info = res.info
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     rate = info.cumul / info.time_overall
@@ -723,7 +890,7 @@ def phase3c_case9_qpsub(dev, on_card: bool) -> dict:
     va[data.line_to] = fx.line_var[5]
     qp = qp_inputs(data, SqpBasePoint(pg=fx.pg, qg=fx.qg,
                                       vm=np.sqrt(fx.bus_w), va=va))
-    tron_cuda.qpsub_launches = bus_cuda.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     res = E.solve_qpsub(CASE9, *[qp[k] for k in QP_KEYS], 1e5,
                         outer_iterlim=10000, inner_iterlim=1, scale=1e-4,
@@ -764,14 +931,12 @@ def phase3c_case9_qpsub(dev, on_card: bool) -> dict:
 def phase6_qpsub(dev, data, on_card: bool) -> dict:
     import exaadmm_tpu_torch as E
     from exaadmm_tpu_torch.models.qpsub.model import QP_KEYS
-    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
     qp = qp_inputs(data)
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
-    tron_cuda.launches = tron_cuda.ramp_launches = 0
-    tron_cuda.qpsub_launches = bus_cuda.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     res = E.solve_qpsub(data.case, *[qp[k] for k in QP_KEYS], 1e5, data=data,
                         outer_iterlim=QP_ITERS, scale=1e-4, rho_pq=4e3,
@@ -779,10 +944,7 @@ def phase6_qpsub(dev, data, on_card: bool) -> dict:
                         verbose=0, device=dev)
     _sync(dev)
     secs = time.perf_counter() - t0
-    launches = {"tron_alm_branch": tron_cuda.launches,
-                "tron_alm_ramp": tron_cuda.ramp_launches,
-                "tron_alm_qpsub": tron_cuda.qpsub_launches,
-                "bus_scatter": bus_cuda.launches}
+    launches = _launches()
     info = res.info
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     rate = info.cumul / info.time_overall
@@ -809,6 +971,149 @@ def phase6_qpsub(dev, data, on_card: bool) -> dict:
                f"qpsub path: bus launches {launches}")
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, peak=peak)
+
+
+def _near_pin(label: str, info, outer: int, cumul: int, obj=None):
+    """Solved, within 1 outer and 2 % cumul of the pin, the objective
+    within 1e-6 relative."""
+    _check(info.status == "Solved", f"{label}: status {info.status}")
+    _check(abs(info.outer - outer) <= 1, f"{label}: outer {info.outer}")
+    _check(abs(info.cumul - cumul) <= 0.02 * cumul,
+           f"{label}: cumul {info.cumul}")
+    if obj is not None:
+        _check(abs(info.objval - obj) <= 1e-6 * abs(obj),
+               f"{label}: obj {info.objval!r}")
+
+
+def phase3e_case9_mpec(dev, on_card: bool) -> dict:
+    """case9 MPEC without and with storage (storage_ratio 0.3): the branch
+    kernel once per inner iteration, the scatter two times (three with
+    storage)."""
+    import exaadmm_tpu_torch as E
+
+    out = {}
+    for label, extra in (("without storage", {}),
+                         ("with storage", dict(storage_ratio=0.3,
+                                               storage_charge_max=0.1))):
+        outer, cumul, obj = MPEC_PINS[label]
+        _zero_launches()
+        t0 = time.perf_counter()
+        res = E.solve_acopf_mpec(CASE9, rho_pq=4e2, rho_va=4e4,
+                                 outer_iterlim=40, outer_eps=2e-4, verbose=0,
+                                 device=dev, **extra)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        info = res.info
+        launches = _launches()
+        print(f"phase 3e: case9 MPEC {label} {info.status} outer "
+              f"{info.outer} (pin {outer}) cumul {info.cumul} (pin {cumul}) "
+              f"obj {info.objval!r} (rel diff "
+              f"{abs(info.objval - obj) / obj:.2e}) freq_change "
+              f"{res.freq_change!r} vm_dev {res.vm_dev!r} in {secs:.2f} s; "
+              f"launches {launches}")
+        _near_pin(f"case9 MPEC {label}", info, outer, cumul, obj)
+        if on_card:
+            per_it = 3 if extra else 2
+            _check(launches["tron_alm_branch"] == info.cumul
+                   and launches["bus_scatter"] == per_it * info.cumul,
+                   f"case9 MPEC {label}: launches {launches} for "
+                   f"{info.cumul} inner iterations")
+        out[label] = dict(outer=info.outer, cumul=info.cumul,
+                          obj=info.objval, seconds=secs)
+    return out
+
+
+def phase3f_case9_rolling_projection(dev, on_card: bool) -> dict:
+    """case9 rolling horizon over periods 1-3, then case9 with the
+    power-flow projection."""
+    import exaadmm_tpu_torch as E
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    _, infos = E.solve_acopf_rolling(CASE9, DEMAND9, rho_pq=4e2, rho_va=4e4,
+                                     outer_iterlim=25, outer_eps=2e-4,
+                                     end_period=3, tight_factor=1.0,
+                                     verbose=0, device=dev)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    print(f"phase 3f: case9 rolling, periods 1-3 in {secs:.2f} s: "
+          + "; ".join(f"{i.status} {i.outer} / {i.cumul} (pin {o} / {c}) "
+                      f"obj {i.objval!r}"
+                      for i, (o, c, _) in zip(infos, ROLLING_PINS))
+          + f"; launches {launches}")
+    _check(len(infos) == 3, "case9 rolling: periods")
+    for t, (info, (outer, cumul, obj)) in enumerate(zip(infos, ROLLING_PINS)):
+        _near_pin(f"case9 rolling period {t + 1}", info, outer, cumul, obj)
+    total = sum(i.cumul for i in infos)
+    if on_card:
+        _check(launches["tron_alm_branch"] == total,
+               f"case9 rolling: launches {launches} for {total} inner "
+               f"iterations")
+
+    res = E.solve_acopf(CASE9, rho_pq=4e2, rho_va=4e4, outer_eps=2e-5,
+                        outer_iterlim=25, use_projection=True, verbose=0,
+                        device=dev)
+    info = res.info
+    v = res.solution.v.line.cpu().numpy()
+    data = res.data
+    spread = max(float(np.ptp(np.concatenate([v[data.line_from == b, 4],
+                                              v[data.line_to == b, 5]])))
+                 for b in range(data.nbus))
+    print(f"phase 3f: case9 with projection {info.status} outer {info.outer} "
+          f"cumul {info.cumul} obj {info.objval!r} pf_residual "
+          f"{info.pf_residual!r} in {info.time_projection:.4f} s of "
+          f"projection; largest spread of a bus's w copies {spread:.3e}")
+    _near_pin("case9 projection", info, PIN_OUTER, PIN_CUMUL)
+    _check(info.pf_residual <= 1e-6, f"case9 projection: pf residual "
+                                     f"{info.pf_residual}")
+    _check(spread < 1e-12, f"case9 projection: w spread {spread}")
+    return dict(periods=[(i.outer, i.cumul, i.objval) for i in infos],
+                seconds=secs, pf_residual=info.pf_residual)
+
+
+def phase7_mpec(dev, data, on_card: bool) -> dict:
+    """The MPEC path at full width: ``data`` with storage at a tenth of its
+    buses, 10 outer iterations of at most 100 inner, outer_eps 0."""
+    import exaadmm_tpu_torch as E
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = E.solve_acopf_mpec(data.case, data=data, rho_pq=3e3, rho_va=3e5,
+                             outer_iterlim=10, inner_iterlim=100,
+                             outer_eps=0.0, verbose=0, device=dev,
+                             **MPEC_STORAGE)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    info = res.info
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    rate = info.cumul / info.time_overall
+    nsto = res.model.storage.nstorage
+    print(f"phase 7: {data.case} MPEC ({data.nbus} buses, {data.nline} "
+          f"lines, {data.ngen} gens, {nsto} storage units) fp64: "
+          f"{info.outer} outer, {info.cumul} inner; ADMM loop "
+          f"{info.time_overall:.3f} s = {rate:.2f} inner it/s, whole call "
+          f"with setup {secs:.3f} s = {info.cumul / secs:.2f} inner it/s; "
+          f"mismatch {info.mismatch!r} primres {info.primres!r} obj "
+          f"{info.objval!r} freq_change {res.freq_change!r}; peak device "
+          f"memory {peak / 2**20:.1f} MiB; launches {launches}")
+    for name in ("mismatch", "primres", "dualres", "objval", "norm_z_curr"):
+        _check(bool(np.isfinite(getattr(info, name))),
+               f"MPEC path: {name} not finite")
+    _check(bool(torch.isfinite(res.solution.u.line).all())
+           and bool(torch.isfinite(res.solution.u.sto).all()),
+           "MPEC path: u not finite")
+    if on_card:
+        _check(launches["tron_alm_branch"] == info.cumul
+               and launches["bus_scatter"] == 3 * info.cumul
+               and sum(launches.values()) == 4 * info.cumul,
+               f"MPEC path: launches {launches}")
+    return dict(launches=launches, rate=rate, seconds=secs,
+                mismatch=info.mismatch, peak=peak, nstorage=nsto)
 
 
 def two_level_hooks(model, beta: float = 1e3):
@@ -935,22 +1240,34 @@ def run(device, big_data, mp_data, mp_loads, T: int) -> dict:
     results = {"device": phase0_device(dev, on_card)}
     results["bus"] = phase1_bus(dev, big_data, on_card)
     results["bus_periods"] = phase1b_bus_periods(dev, *mp)
+    results["bus_mpec"] = phase1c_bus_mpec(dev, big_data, on_card)
     results["tron"] = phase2_tron(dev, big_data, on_card)
     results["tron_mp"] = phase2_branch_periods(dev, *mp)
     results["ramp"] = phase2b_ramp(dev, *mp)
     results["qpsub"] = phase2c_qpsub(dev, big_data, on_card)
+    results["polar"] = phase2d_polar(dev, big_data, on_card)
     results["case9"] = phase3_case9(dev, on_card)
     results["case9_mp"] = phase3b_case9_mpacopf(dev, on_card)
     results["case9_qp"] = phase3c_case9_qpsub(dev, on_card)
+    results["case9_polar"] = phase3d_case9_polar(dev, on_card)
+    results["case9_mpec"] = phase3e_case9_mpec(dev, on_card)
+    results["case9_rolling"] = phase3f_case9_rolling_projection(dev, on_card)
     results["main"] = phase4_main(dev, big_data, on_card)
     results["main_mp"] = phase5_mpacopf(dev, *mp)
     results["main_qp"] = phase6_qpsub(dev, big_data, on_card)
+    results["main_mpec"] = phase7_mpec(dev, big_data, on_card)
+    results["main_polar"] = phase4_main(dev, big_data, on_card,
+                                        use_linelimit=False, label="phase 8",
+                                        outer_iterlim=10)
+    main_runs = ("main", "main_mp", "main_qp", "main_mpec", "main_polar")
     kern = []
     for name, key in (("tron_alm_branch", "tron"), ("tron_alm_ramp", "ramp"),
-                      ("tron_alm_qpsub", "qpsub"), ("bus_scatter", "bus")):
+                      ("tron_alm_qpsub", "qpsub"), ("bus_scatter", "bus"),
+                      ("tron_alm_polar", "polar")):
         r = results[key]["f64"]
         if key == "bus":
-            err = max(r["abs"], results["bus_periods"]["f64"]["abs"])
+            err = max(r["abs"], results["bus_periods"]["f64"]["abs"],
+                      results["bus_mpec"]["f64"]["abs"])
         elif key == "tron":
             err = max(r["dx_all"], results["tron_mp"]["f64"]["dx_all"])
         elif key == "qpsub":
@@ -961,7 +1278,7 @@ def run(device, big_data, mp_data, mp_loads, T: int) -> dict:
                      "source": KERNEL_SOURCES[name][0],
                      "replaces": KERNEL_SOURCES[name][1],
                      "launches": sum(results[m]["launches"][name]
-                                     for m in ("main", "main_mp", "main_qp")),
+                                     for m in main_runs),
                      "max_abs_err": err, "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
@@ -978,6 +1295,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from exaadmm_tpu_torch.models.acopf import model as M
     from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.interface.solve_mpec import \
+        build_model as build_mpec
+    from exaadmm_tpu_torch.models.mpec import model as MM
     from exaadmm_tpu_torch.models.qpsub import model as Q
     from exaadmm_tpu_torch.utils.environment import Parameters
     from exaadmm_tpu_torch.utils.synthetic import (synthetic_case,
@@ -1003,6 +1323,14 @@ def main() -> int:
         sol = model.one_level_reset(Q.init_solution(model, 4e3, 4e3))
         profile_main(dev, "phase 6", one_level_hooks(model.solve_prep(sol)),
                      sol, ("mismatch", "dualres"))
+        model = build_mpec(big, Parameters(verbose=0), **MPEC_STORAGE,
+                           device=dev)
+        profile_main(dev, "phase 7", two_level_hooks(model),
+                     MM.init_solution(model, 3e3, 3e5), ("primres",))
+        model = M.build_model(big, Parameters(verbose=0), use_linelimit=False,
+                              device=dev)
+        profile_main(dev, "phase 8", two_level_hooks(model),
+                     M.init_solution(model, 3e3, 3e5), ("primres",))
     if "--solve" in sys.argv[1:]:
         solve_to_tolerance(dev, big)
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -13,20 +13,30 @@ version:
 
 - ``ops/tron_cuda.py``: the TRON/ALM batches, one body
   (``csrc/tron_alm.cuh``) for the branch instance
-  (``csrc/tron_alm_branch.cu``), the multi-period ramp instance
+  (``csrc/tron_alm_branch.cu``), the branch without line limits
+  (``csrc/tron_alm_polar.cu``), the multi-period ramp instance
   (``csrc/tron_alm_ramp.cu``) and the QP-subproblem instance
   (``csrc/tron_alm_qpsub.cu``),
 - ``ops/bus_cuda.py``: the deterministic bus scatter (``csrc/bus_scatter.cu``).
 
-Entry points: ``solve_acopf`` (single period) and ``solve_mpacopf``
-(periods coupled by generator ramping) on the two-level ADMM, and
-``solve_qpsub`` (the QP subproblem of an outer SQP) on the one-level ADMM.
+Entry points: ``solve_acopf`` (single period, with or without line limits
+and the power-flow projection; ``solve_acopf_from_env`` re-runs one),
+``solve_acopf_rolling`` (period after period, ramp-tightened),
+``solve_mpacopf`` (periods coupled by generator ramping) and
+``solve_acopf_mpec`` (voltage/frequency control and storage) on the
+two-level ADMM; ``solve_qpsub`` (the QP subproblem of an outer SQP) on the
+one-level ADMM; ``solve_pf`` (Newton power flow, on the host with numpy
+and scipy).
 
 This package imports neither jax nor ``exaadmm_tpu``.
 """
 
-from .interface.solve_acopf import SolveResult, solve_acopf
+from .interface.solve_acopf import (SolveResult, solve_acopf,
+                                    solve_acopf_from_env)
+from .interface.solve_acopf_rolling import solve_acopf_rolling
 from .interface.solve_mpacopf import MpacopfResult, solve_mpacopf
+from .interface.solve_mpec import MpecResult, solve_acopf_mpec
+from .interface.solve_pf import solve_pf
 from .interface.solve_qpsub import QpsubResult, solve_qpsub
 from .utils.environment import Blocks, Parameters, Solution
 from .utils.opfdata import opf_loaddata
@@ -36,10 +46,15 @@ __version__ = "0.1.0"
 __all__ = [
     "solve_acopf",
     "SolveResult",
+    "solve_acopf_from_env",
+    "solve_acopf_rolling",
     "solve_mpacopf",
     "MpacopfResult",
+    "solve_acopf_mpec",
+    "MpecResult",
     "solve_qpsub",
     "QpsubResult",
+    "solve_pf",
     "Parameters",
     "Solution",
     "Blocks",

@@ -38,7 +38,12 @@ def _beta_cap(dtype) -> float:
 
 def admm_two_level(model, sol: Solution,
                    info: IterationInformation | None = None, Pd=None, Qd=None):
-    """Run the two-level ADMM; returns (sol, info)."""
+    """Run the two-level ADMM; returns (sol, info).
+
+    ``Pd``/``Qd`` replace the grid's loads for this call (a rolling horizon
+    re-solves one model period by period with them, setting the model's
+    ``pgmin_curr``/``pgmax_curr`` between calls). beta starts at
+    ``initial_beta`` on every call."""
     par = model.par
     info = info or IterationInformation()
     sqrt_d = float(model.nvar) ** 0.5

@@ -68,7 +68,8 @@
 //   using Real = T;  static constexpr int N, NCON, NPARAM;
 //   static constexpr bool kExactAlmDelta;
 //   T obj(const T* x, const T* lam, T mu);       // full ALM objective
-//   void cons(const T* x, T* c);                 // NCON equalities
+//   void cons(const T* x, T* c);                 // NCON equalities (only
+//                                                // called when NCON > 0)
 //   void gh(const T* x, const T* lam, T mu, T* g, T (*H)[N], int r);
 //       // the gradient, and the Hessian rows of thread r's slots
 //       // (H[m][j] = entry (r + m * kGroup, j)); see own_rows
@@ -77,7 +78,10 @@
 // (obj, cons and gh may keep a cache of their own between calls). With
 // kExactAlmDelta the objective after an ALM round is f + alm_delta (the
 // objective is affine in lam and mu); without it, obj is evaluated afresh
-// at the new lam and mu.
+// at the new lam and mu. A problem without constraints (NCON = 0) has
+// ||c|| = 0, so its first ALM round finishes the lane: plain bound-
+// constrained TRON (the JAX package's tron_batched); its NCON-sized arrays
+// keep one unused slot.
 
 #pragma once
 
@@ -289,11 +293,15 @@ struct LaneParams {
   __device__ __forceinline__ T at(int k) const { return P[k * stride]; }
 };
 
+// size of an NCON-long array: one unused slot when NCON = 0
+template <int NCON>
+constexpr int con_slots = NCON > 0 ? NCON : 1;
+
 template <class Prob, typename T = typename Prob::Real>
 struct Lane {
   static constexpr int N = Prob::N;
   T x[N];
-  T lam[Prob::NCON];
+  T lam[con_slots<Prob::NCON>];
   T mu;
   const T* bounds;  // xl rows 0..N-1, xu rows N..2N-1, at stride
   int stride;
@@ -607,14 +615,17 @@ __global__ void __launch_bounds__(kThreads, kGroup)
     if (!tron_done) continue;
 
     // --- ALM round at the new x ---
-    T c[NCON];
-    ln.p.cons(ln.x, c);
-    T cnorm = T(fabs(c[0]));
+    T c[con_slots<NCON>];
+    T cnorm = T(0);  // without constraints the round solves the lane
+    if constexpr (NCON > 0) {
+      ln.p.cons(ln.x, c);
+      cnorm = T(fabs(c[0]));
 #pragma unroll
-    for (int i = 1; i < NCON; ++i) cnorm = tmax(cnorm, T(fabs(c[i])));
+      for (int i = 1; i < NCON; ++i) cnorm = tmax(cnorm, T(fabs(c[i])));
+    }
     const bool good = cnorm <= eta;
     const bool lane_solved = good && (cnorm <= ctol);
-    T lam_old[NCON];
+    T lam_old[con_slots<NCON>];
 #pragma unroll
     for (int i = 0; i < NCON; ++i) lam_old[i] = ln.lam[i];
     const T mu_old = ln.mu;

@@ -5,7 +5,9 @@ solve_acopf.jl): the same math arguments and defaults, plus ``device``.
 ``device`` defaults to ``"cuda"``, which runs the hand-written kernels and
 raises ``RuntimeError`` when no CUDA device is present (there is no
 fallback); ``device="cpu"``, asked for explicitly, runs their plain PyTorch
-versions.
+versions. ``use_projection`` runs the power-flow projection
+(``models/pf/projection.py``, on the host) after the solve.
+``solve_acopf_from_env`` re-runs a solve from its ``AdmmEnv``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..algorithms.admm_two_level import admm_two_level
 from ..models.acopf import model as M
+from ..models.pf.projection import pf_projection
 from ..utils.environment import AdmmEnv, IterationInformation, Parameters, Solution
 from ..utils.opfdata import OPFData, opf_loaddata
 
@@ -40,6 +43,7 @@ def solve_acopf(
     obj_scale: float = 1.0,
     scale: float = 1e-4,
     use_linelimit: bool = True,
+    use_projection: bool = False,
     tight_factor: float = 1.0,
     outer_eps: float = 2e-4,
     verbose: int = 1,
@@ -82,8 +86,42 @@ def solve_acopf(
                           tight_factor=tight_factor, dtype=dtype, device=dev)
     sol = M.init_solution(model, rho_pq, rho_va)
     sol, info = admm_two_level(model, sol)
+    if use_projection:
+        sol, proj = pf_projection(data, model, sol, verbose=verbose)
+        info.time_projection = proj["time"]
+        info.pf_residual = proj["pf_residual"]
     env = AdmmEnv(case=case, data=data, initial_rho_pq=rho_pq,
                   initial_rho_va=rho_va, params=par,
-                  tight_factor=tight_factor, use_linelimit=use_linelimit)
+                  tight_factor=tight_factor, use_linelimit=use_linelimit,
+                  use_projection=use_projection)
     return SolveResult(data=data, model=model, solution=sol, info=info,
                        env=env)
+
+
+def solve_acopf_from_env(env: AdmmEnv, **overrides) -> SolveResult:
+    """Re-run a solve from its recorded :class:`AdmmEnv` (JAX
+    ``solve_acopf_from_env``): the same case, rho seeds, flags and
+    Parameters, with keyword ``overrides`` (``device`` among them) applied
+    on top. The case is read from ``env.case`` again, or taken from
+    ``env.data`` with ``data=env.data``."""
+    par = env.params
+    kwargs = dict(
+        rho_pq=env.initial_rho_pq,
+        rho_va=env.initial_rho_va,
+        use_linelimit=env.use_linelimit,
+        use_projection=env.use_projection,
+        tight_factor=env.tight_factor,
+        outer_iterlim=par.outer_iterlim,
+        inner_iterlim=par.inner_iterlim,
+        obj_scale=par.obj_scale,
+        scale=par.scale,
+        outer_eps=par.outer_eps,
+        initial_beta=par.initial_beta,
+        theta=par.theta,
+        inc_c=par.inc_c,
+        verbose=par.verbose,
+        # a step cap truncates lanes, so a recorded run re-solves with it
+        tron_step_cap=par.tron_step_cap,
+    )
+    kwargs.update(overrides)
+    return solve_acopf(env.case, **kwargs)

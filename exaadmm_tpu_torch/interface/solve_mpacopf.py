@@ -14,8 +14,8 @@ calls ``init_solution!``, which resets the period states to a flat start
 the warm start. Here ``warm_start=True`` keeps the solved period states and
 derives the ramp coupling from them.
 
-``use_projection=True`` needs the power-flow projection, which is not
-ported yet, and raises ``NotImplementedError``.
+``use_projection=True`` projects every period onto its own power flow, with
+that period's loads (mpacopf_admm_prepoststep_cpu.jl:48-56), on the host.
 """
 
 from __future__ import annotations
@@ -27,8 +27,9 @@ import torch
 from ..algorithms.admm_two_level import admm_two_level
 from ..models.acopf import model as acopf_M
 from ..models.mpacopf import model as mp_M
-from ..utils.environment import (AdmmEnv, IterationInformation, Parameters,
-                                 SolutionMpacopf)
+from ..models.pf.projection import pf_projection
+from ..utils.environment import (AdmmEnv, Blocks, IterationInformation,
+                                 Parameters, SolutionMpacopf)
 from ..utils.opfdata import OPFData, load_time_series, opf_loaddata
 
 
@@ -74,9 +75,6 @@ def solve_mpacopf(
     The loads come from ``<load_prefix>.Pd`` / ``.Qd`` (rows buses, columns
     periods), or from ``loads = (Pd, Qd)`` of that shape; ``load_scale``
     multiplies either."""
-    if use_projection:
-        raise NotImplementedError(
-            "use_projection needs the power-flow projection, not ported yet")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={device!r} asked for, but CUDA is not "
@@ -117,6 +115,8 @@ def solve_mpacopf(
 
     sol = mp_M.init_solution(model, rho_pq, rho_va, warm=warm)
     sol, info = admm_two_level(model, sol)
+    if use_projection:
+        sol = _project_periods(data, model, sol, info, verbose)
     err_ramp = mp_M.check_ramp_violations(model, sol)
     if verbose > 0:
         print(f" ** mpacopf: {info.status} obj={info.objval:.6e} "
@@ -124,7 +124,31 @@ def solve_mpacopf(
     env = AdmmEnv(case=case, data=data, initial_rho_pq=rho_pq,
                   initial_rho_va=rho_va, params=model.par,
                   tight_factor=tight_factor, use_linelimit=use_linelimit,
-                  load_specified=True,
+                  use_projection=use_projection, load_specified=True,
                   horizon_length=end_period - start_period + 1)
     return MpacopfResult(data=data, model=model, solution=sol, info=info,
                          err_ramp=err_ramp, env=env)
+
+
+def _project_periods(data: OPFData, model, sol: SolutionMpacopf,
+                     info: IterationInformation, verbose: int
+                     ) -> SolutionMpacopf:
+    """Each period's state projected onto the power flow of its own loads
+    (the JAX package's poststep; ``tests/test_mpacopf.py`` guards the
+    per-period loads); ``info`` gets the summed time and the worst
+    residual."""
+    ac = sol.acopf
+    v_gen, v_line = [], []
+    info.time_projection, info.pf_residual = 0.0, 0.0
+    for t in range(model.T):
+        period = ac.replace(
+            u=Blocks(gen=ac.u.gen[t], line=ac.u.line[t]),
+            v=Blocks(gen=ac.v.gen[t], line=ac.v.line[t]))
+        proj, pinfo = pf_projection(data, model, period, Pd=model.Pd[t],
+                                    Qd=model.Qd[t], verbose=verbose)
+        v_gen.append(proj.v.gen)
+        v_line.append(proj.v.line)
+        info.time_projection += pinfo["time"]
+        info.pf_residual = max(info.pf_residual, pinfo["pf_residual"])
+    return sol.replace(acopf=ac.replace(
+        v=Blocks(gen=torch.stack(v_gen), line=torch.stack(v_line))))

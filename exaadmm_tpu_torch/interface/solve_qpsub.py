@@ -7,10 +7,11 @@ and keywords, solved by one-level ADMM, plus ``device`` and ``data`` (as in
 ``solve_acopf``: ``device`` is ``"cuda"`` by default and raises
 ``RuntimeError`` without a CUDA device; ``"cpu"`` runs the plain versions).
 
+``use_projection=True`` projects the final state onto the power flow of
+the QP's residual loads, on the host (qpsub_admm_prepoststep_cpu.jl:16-19).
 Not ported yet, and raising ``NotImplementedError``: ``onelevel=False``
 (the JAX package and the reference do not implement it either), ``mesh``
-or ``pad_lines_to > 1`` (multi-GPU) and ``use_projection=True`` (the
-power-flow projection). ``branch_backend``, ``pallas_tile`` and
+or ``pad_lines_to > 1`` (multi-GPU). ``branch_backend``, ``pallas_tile`` and
 ``bus_backend`` choose between TPU code paths in the JAX package; they are
 accepted and ignored: on a CUDA device the port always runs its kernels.
 """
@@ -22,6 +23,7 @@ import dataclasses
 import torch
 
 from ..algorithms.admm_one_level import admm_one_level
+from ..models.pf.projection import pf_projection
 from ..models.qpsub import model as Q
 from ..utils.environment import IterationInformation, Parameters, SolutionQpsub
 from ..utils.opfdata import OPFData, opf_loaddata
@@ -75,9 +77,6 @@ def solve_qpsub(
     if mesh is not None or pad_lines_to > 1:
         raise NotImplementedError(
             "a sharded qpsub solve needs multi-GPU support, not ported yet")
-    if use_projection:
-        raise NotImplementedError(
-            "use_projection needs the power-flow projection, not ported yet")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={device!r} asked for, but CUDA is not "
@@ -102,5 +101,11 @@ def solve_qpsub(
     sol = Q.init_solution(model, rho_pq, rho_va)
     sol, info = admm_one_level(model, sol)
     sqp_out = Q.poststep(model, sol)
+    if use_projection:
+        base, proj = pf_projection(data, model, sol.base, Pd=model.Pd,
+                                   Qd=model.Qd, verbose=verbose)
+        sol = sol.replace(base=base)
+        info.time_projection = proj["time"]
+        info.pf_residual = proj["pf_residual"]
     return QpsubResult(data=data, model=model, solution=sol, info=info,
                        sqp_out=sqp_out)

@@ -10,7 +10,7 @@ timed in turns (the arms in order, then in reverse; the device time of
 each run from ``utils/timing.time_ms``, the mean of the two runs reported).
 
 ``--arm NAME=DIR`` adds an arm built from the CUDA sources in DIR, laid out
-as ``csrc/`` (the four ``.cu`` files and ``tron_alm.cuh``), for example the
+as ``csrc/`` (the ``.cu`` files of ``SOURCES`` and the headers), for example the
 sources of a parent commit unpacked with ``git archive``. ``--groups``
 adds one arm per group size G, built from the package's own ``csrc/`` with
 ``tron_alm::kGroup`` set to G. The first arm is the reference.

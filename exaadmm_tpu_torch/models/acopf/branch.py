@@ -11,10 +11,13 @@ objective is the ADMM proximal term lam.flow + rho/2 (flow - (v - z))^2 over
 the 8 flow/voltage quantities of the line
 (acopf_eval_linelimit_kernel_cpu.jl:1-46).
 
+Without line limits each line solves the 4-variable polar form over
+(v_i, v_j, th_i, th_j) with the same prox objective, no slacks and no ALM
+rounds (JAX ``branch_obj_polar`` through ``tron_batched``).
+
 Every line is a lane of one TRON/ALM batch (``ops/tron_cuda.py``): the
-hand-written kernel on the GPU, the plain lockstep version on the CPU. Only
-the line-limit form is ported; the 4-variable polar form without line
-limits raises ``NotImplementedError``.
+hand-written kernel on the GPU (the branch instance, or the polar instance
+without line limits), the plain lockstep version on the CPU.
 """
 
 from __future__ import annotations
@@ -75,6 +78,25 @@ def branch_alm_delta(c, lam_old, mu_old, lam_new, mu_new, p):
     return (dl + dq) * p["scale"]
 
 
+def branch_obj_polar(x, p):
+    """Objective of the 4-variable problem without line limits, times
+    `scale` (JAX ``branch_obj_polar``): the prox terms alone."""
+    pij, qij, pji, qji = _flows(x, p)
+    vi, vj, thi, thj = x[0], x[1], x[2], x[3]
+    eight = (pij, qij, pji, qji, vi * vi, vj * vj, thi, thj)
+    l, rho, t = p["l"], p["rho"], p["t"]
+    f = torch.zeros_like(vi)
+    for k, w in enumerate(eight):
+        dw = w - t[k]
+        f = f + l[k] * w + 0.5 * rho[k] * (dw * dw)
+    return f * p["scale"]
+
+
+def branch_cons_polar(x, p):
+    """No constraints: a (0, B) tensor."""
+    return x[:0]
+
+
 def branch_fgh_linelimit(x, p, lam, mu):
     """Closed-form (f, gradient, Hessian) of ``branch_obj_linelimit``.
 
@@ -85,11 +107,31 @@ def branch_fgh_linelimit(x, p, lam, mu):
 
     where M collapses to a diagonal plus two rank-one terms from the ALM
     quadratic. The operation order is that of the JAX version, term by
-    term, and ``csrc/tron_alm_branch.cu`` repeats it.
+    term, and ``csrc/branch_problem.cuh`` repeats it.
 
     Returns (f (B,), g (6, B), H (6, 6, B)).
     """
-    vi, vj, ti, tj, s1, s2 = x[0], x[1], x[2], x[3], x[4], x[5]
+    return _branch_fgh(x, p, lam, mu)
+
+
+def branch_fgh_polar(x, p, lam=None, mu=None):
+    """Closed-form (f, gradient, Hessian) of ``branch_obj_polar``: the 4x4
+    block of ``branch_fgh_linelimit`` without the ALM terms (kap = 0, no
+    slack rows). The JAX package differentiates the polar objective by
+    autodiff; ``csrc/branch_problem.cuh`` repeats this order. ``lam`` and
+    ``mu`` are ignored.
+
+    Returns (f (B,), g (4, B), H (4, 4, B)).
+    """
+    return _branch_fgh(x, p)
+
+
+def _branch_fgh(x, p, lam=None, mu=None):
+    """The closed form of both branch objectives: with ``lam`` and ``mu``
+    the line-limit ALM objective over (v_i, v_j, th_i, th_j, s_ij, s_ji),
+    without them the polar prox objective over the first four."""
+    alm = lam is not None
+    vi, vj, ti, tj = x[0], x[1], x[2], x[3]
     l, rho, t, scale = p["l"], p["rho"], p["t"], p["scale"]
     c_ = torch.cos(ti - tj)
     s_ = torch.sin(ti - tj)
@@ -122,10 +164,12 @@ def branch_fgh_linelimit(x, p, lam, mu):
 
     F = [ksum(kmul(K[m][b], u[b]) for b in range(4)) for m in range(4)]
 
-    c1 = F[0] * F[0] + F[1] * F[1] + s1
-    c2v = F[2] * F[2] + F[3] * F[3] + s2
-    kap1 = lam[0] + mu * c1
-    kap2 = lam[1] + mu * c2v
+    if alm:
+        s1, s2 = x[4], x[5]
+        c1 = F[0] * F[0] + F[1] * F[1] + s1
+        c2v = F[2] * F[2] + F[3] * F[3] + s2
+        kap1 = lam[0] + mu * c1
+        kap2 = lam[1] + mu * c2v
 
     # objective
     f = torch.zeros_like(vi)
@@ -136,17 +180,17 @@ def branch_fgh_linelimit(x, p, lam, mu):
     f = (f + l[4] * u1 + 0.5 * rho[4] * (d4 * d4)
          + l[5] * u2 + 0.5 * rho[5] * (d5 * d5)
          + l[6] * ti + 0.5 * rho[6] * (d6 * d6)
-         + l[7] * tj + 0.5 * rho[7] * (d7 * d7)
-         + lam[0] * c1 + 0.5 * mu * c1 * c1
-         + lam[1] * c2v + 0.5 * mu * c2v * c2v) * scale
+         + l[7] * tj + 0.5 * rho[7] * (d7 * d7))
+    if alm:
+        f = (f + lam[0] * c1 + 0.5 * mu * c1 * c1
+             + lam[1] * c2v + 0.5 * mu * c2v * c2v)
+    f = f * scale
 
     # flow adjoints and direct terms
-    gF = [
-        l[0] + rho[0] * (F[0] - t[0]) + 2.0 * kap1 * F[0],
-        l[1] + rho[1] * (F[1] - t[1]) + 2.0 * kap1 * F[1],
-        l[2] + rho[2] * (F[2] - t[2]) + 2.0 * kap2 * F[2],
-        l[3] + rho[3] * (F[3] - t[3]) + 2.0 * kap2 * F[3],
-    ]
+    gF = [l[m] + rho[m] * (F[m] - t[m]) for m in range(4)]
+    if alm:
+        gF = [gF[0] + 2.0 * kap1 * F[0], gF[1] + 2.0 * kap1 * F[1],
+              gF[2] + 2.0 * kap2 * F[2], gF[3] + 2.0 * kap2 * F[3]]
     h_u1 = l[4] + rho[4] * (u1 - t[4])
     h_u2 = l[5] + rho[5] * (u2 - t[5])
     h_ti = l[6] + rho[6] * (ti - t[6])
@@ -158,31 +202,37 @@ def branch_fgh_linelimit(x, p, lam, mu):
     a[0] = a[0] + h_u1
     a[1] = a[1] + h_u2
 
-    g = torch.stack([
+    g_rows = [
         2.0 * vi * a[0] + vj * c_ * a[2] + vj * s_ * a[3],
         2.0 * vj * a[1] + vi * c_ * a[2] + vi * s_ * a[3],
         -u4 * a[2] + u3 * a[3] + h_ti,
         u4 * a[2] - u3 * a[3] + h_tj,
-        kap1,
-        kap2,
-    ]) * scale
+    ]
+    if alm:
+        g_rows += [kap1, kap2]
+    g = torch.stack(g_rows) * scale
 
     # --- Hessian ---
     # M over the basis: K^T diag(rho_m + 2 kap_blk) K
     #                   + mu (K^T w1)(K^T w1)^T + mu (K^T w2)(K^T w2)^T
     #                   + diag(rho4, rho5, 0, 0)
-    rt = [rho[0] + 2.0 * kap1, rho[1] + 2.0 * kap1,
-          rho[2] + 2.0 * kap2, rho[3] + 2.0 * kap2]
-    kw1 = [2.0 * ksum(None if K[m][b] is None else F[m] * K[m][b]
-                      for m in (0, 1)) for b in range(4)]
-    kw2 = [2.0 * ksum(None if K[m][b] is None else F[m] * K[m][b]
-                      for m in (2, 3)) for b in range(4)]
+    # (without the ALM terms: K^T diag(rho_m) K + diag(rho4, rho5, 0, 0))
+    if alm:
+        rt = [rho[0] + 2.0 * kap1, rho[1] + 2.0 * kap1,
+              rho[2] + 2.0 * kap2, rho[3] + 2.0 * kap2]
+        kw1 = [2.0 * ksum(None if K[m][b] is None else F[m] * K[m][b]
+                          for m in (0, 1)) for b in range(4)]
+        kw2 = [2.0 * ksum(None if K[m][b] is None else F[m] * K[m][b]
+                          for m in (2, 3)) for b in range(4)]
+    else:
+        rt = [rho[0], rho[1], rho[2], rho[3]]
     M = [[None] * 4 for _ in range(4)]
     for b in range(4):
         for b2 in range(b, 4):
             m_val = ksum(None if K[m][b] is None or K[m][b2] is None
                          else rt[m] * K[m][b] * K[m][b2] for m in range(4))
-            m_val = m_val + mu * (kw1[b] * kw1[b2] + kw2[b] * kw2[b2])
+            if alm:
+                m_val = m_val + mu * (kw1[b] * kw1[b2] + kw2[b] * kw2[b2])
             M[b][b2] = M[b2][b] = m_val
     M[0][0] = M[0][0] + rho[4]
     M[1][1] = M[1][1] + rho[5]
@@ -223,23 +273,23 @@ def branch_fgh_linelimit(x, p, lam, mu):
     H4[2][3] = H4[2][3] + a[2] * u3 + a[3] * u4
     H4[3][3] = H4[3][3] - a[2] * u3 - a[3] * u4 + rho[7]
 
-    # cross terms with the slacks: d kap_blk / dx = mu * Ju^T kw_blk, over
-    # the structural nonzeros of Ju's columns
-    def cross(kwb):
-        return [mu * (jv0 * kwb[0] + jc0 * kwb[2] + js0 * kwb[3]),
-                mu * (jv1 * kwb[1] + jc1 * kwb[2] + js1 * kwb[3]),
-                mu * (-u4 * kwb[2] + u3 * kwb[3]),
-                mu * (u4 * kwb[2] + -u3 * kwb[3])]
+    rows = [[H4[min(i, j)][max(i, j)] * scale for j in range(4)]
+            for i in range(4)]
+    if alm:
+        # cross terms with the slacks: d kap_blk / dx = mu * Ju^T kw_blk,
+        # over the structural nonzeros of Ju's columns
+        def cross(kwb):
+            return [mu * (jv0 * kwb[0] + jc0 * kwb[2] + js0 * kwb[3]),
+                    mu * (jv1 * kwb[1] + jc1 * kwb[2] + js1 * kwb[3]),
+                    mu * (-u4 * kwb[2] + u3 * kwb[3]),
+                    mu * (u4 * kwb[2] + -u3 * kwb[3])]
 
-    cross1 = cross(kw1)
-    cross2 = cross(kw2)
-
-    rows = []
-    for i in range(4):
-        rows.append([H4[min(i, j)][max(i, j)] * scale for j in range(4)]
-                    + [cross1[i] * scale, cross2[i] * scale])
-    rows.append([cross1[j] * scale for j in range(4)] + [mu * scale, zero])
-    rows.append([cross2[j] * scale for j in range(4)] + [zero, mu * scale])
+        cross1 = cross(kw1)
+        cross2 = cross(kw2)
+        for i in range(4):
+            rows[i] += [cross1[i] * scale, cross2[i] * scale]
+        rows.append([cross1[j] * scale for j in range(4)] + [mu * scale, zero])
+        rows.append([cross2[j] * scale for j in range(4)] + [zero, mu * scale])
     H = torch.stack([torch.stack(r) for r in rows])
     return f, g, H
 
@@ -253,10 +303,11 @@ def _branch_params(sol: Solution, gd: GridData, par: Parameters):
     return p
 
 
-def _warm_start_x0(u_line, gd: GridData):
+def _warm_start_x0(u_line, gd: GridData, use_linelimit: bool = True):
     """Warm start from current u (auglag kernel :42-47) and the bounds.
 
-    Rows layout: returns (6, B) tensors x0, xl, xu for the batched solver."""
+    Rows layout: returns (n, B) tensors x0, xl, xu for the batched solver,
+    n = 6 with line limits (the two slacks last), else 4."""
     vi0 = torch.clamp(torch.sqrt(torch.clamp_min(u_line[:, 4], 0.0)),
                       min=gd.fr_vm_bound[:, 0], max=gd.fr_vm_bound[:, 1])
     vj0 = torch.clamp(torch.sqrt(torch.clamp_min(u_line[:, 5], 0.0)),
@@ -265,20 +316,23 @@ def _warm_start_x0(u_line, gd: GridData):
                       max=gd.fr_va_bound[:, 1])
     tj0 = torch.clamp(u_line[:, 7], min=gd.to_va_bound[:, 0],
                       max=gd.to_va_bound[:, 1])
-    zero = torch.zeros_like(gd.rate_a)
-    sij0 = torch.clamp(-(u_line[:, 0] * u_line[:, 0]
-                         + u_line[:, 1] * u_line[:, 1]),
-                       min=-gd.rate_a, max=zero)
-    sji0 = torch.clamp(-(u_line[:, 2] * u_line[:, 2]
-                         + u_line[:, 3] * u_line[:, 3]),
-                       min=-gd.rate_a, max=zero)
-    x0 = torch.stack([vi0, vj0, ti0, tj0, sij0, sji0])
-    xl = torch.stack([gd.fr_vm_bound[:, 0], gd.to_vm_bound[:, 0],
-                      gd.fr_va_bound[:, 0], gd.to_va_bound[:, 0],
-                      -gd.rate_a, -gd.rate_a])
-    xu = torch.stack([gd.fr_vm_bound[:, 1], gd.to_vm_bound[:, 1],
-                      gd.fr_va_bound[:, 1], gd.to_va_bound[:, 1], zero, zero])
-    return x0, xl, xu
+    cols = [vi0, vj0, ti0, tj0]
+    lo = [gd.fr_vm_bound[:, 0], gd.to_vm_bound[:, 0],
+          gd.fr_va_bound[:, 0], gd.to_va_bound[:, 0]]
+    hi = [gd.fr_vm_bound[:, 1], gd.to_vm_bound[:, 1],
+          gd.fr_va_bound[:, 1], gd.to_va_bound[:, 1]]
+    if use_linelimit:
+        zero = torch.zeros_like(gd.rate_a)
+        sij0 = torch.clamp(-(u_line[:, 0] * u_line[:, 0]
+                             + u_line[:, 1] * u_line[:, 1]),
+                           min=-gd.rate_a, max=zero)
+        sji0 = torch.clamp(-(u_line[:, 2] * u_line[:, 2]
+                             + u_line[:, 3] * u_line[:, 3]),
+                           min=-gd.rate_a, max=zero)
+        cols += [sij0, sji0]
+        lo += [-gd.rate_a, -gd.rate_a]
+        hi += [zero, zero]
+    return torch.stack(cols), torch.stack(lo), torch.stack(hi)
 
 
 def branch_tolerances(par: Parameters, dtype):
@@ -315,19 +369,42 @@ def branch_inputs(sol: Solution, gd: GridData, par: Parameters,
             gd.line_mask > 0.5)
 
 
+def polar_inputs(sol: Solution, gd: GridData, par: Parameters):
+    """The polar batch's inputs: x0, xl, xu (4, B), params, lam0 (0, B),
+    mu0 (B,) and active0 (B,); as JAX ``tron_batched`` sets them, no
+    multipliers and mu0 = 10 (one ALM round that finds no constraint)."""
+    x0, xl, xu = _warm_start_x0(sol.u.line, gd, use_linelimit=False)
+    B = x0.shape[1]
+    lam0 = x0.new_zeros((0, B))
+    mu0 = x0.new_full((B,), 10.0)
+    return (x0, xl, xu, _branch_params(sol, gd, par), lam0, mu0,
+            gd.line_mask > 0.5)
+
+
+def polar_tolerances(par: Parameters, dtype):
+    """``branch_tolerances`` for the polar batch: one ALM round (JAX
+    ``tron_batched``'s max_auglag 1)."""
+    return dict(branch_tolerances(par, dtype), max_auglag=1)
+
+
 def branch_update(sol: Solution, gd: GridData, par: Parameters,
                   inner_iter: int, use_linelimit: bool = True):
     """Solve all line subproblems; returns (new u line block, new ALM state,
-    stats). The stats are tensors (nothing is read back here)."""
-    if not use_linelimit:
-        raise NotImplementedError(
-            "the polar branch form without line limits is not ported yet")
-    x0, xl, xu, params, lam0, mu0, active0 = branch_inputs(
-        sol, gd, par, inner_iter)
-    res = tron_cuda.tron_alm_branch(
-        x0, xl, xu, params, lam0, mu0, active0=active0,
-        **branch_tolerances(par, x0.dtype))
-    new_alm = BranchALMState(lam1=res.lam[0], lam2=res.lam[1], mu=res.mu)
+    stats). The stats are tensors (nothing is read back here). Without line
+    limits the ALM state is returned unchanged and ``max_cviol`` is 0."""
+    if use_linelimit:
+        x0, xl, xu, params, lam0, mu0, active0 = branch_inputs(
+            sol, gd, par, inner_iter)
+        res = tron_cuda.tron_alm_branch(
+            x0, xl, xu, params, lam0, mu0, active0=active0,
+            **branch_tolerances(par, x0.dtype))
+        new_alm = BranchALMState(lam1=res.lam[0], lam2=res.lam[1], mu=res.mu)
+    else:
+        x0, xl, xu, params, lam0, mu0, active0 = polar_inputs(sol, gd, par)
+        res = tron_cuda.tron_alm_polar(
+            x0, xl, xu, params, lam0, mu0, active0=active0,
+            **polar_tolerances(par, x0.dtype))
+        new_alm = sol.branch_alm
 
     p = {k: getattr(gd, k) for k in Y_KEYS}
     pij, qij, pji, qji = _flows(res.x, p)

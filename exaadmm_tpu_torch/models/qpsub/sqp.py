@@ -30,10 +30,10 @@ class SqpBasePoint:
     @classmethod
     def from_power_flow(cls, data: OPFData, *, verbose: int = 0):
         """The NR power-flow warm start, the natural SQP linearization
-        point; it needs the power flow, which is not ported yet."""
-        raise NotImplementedError(
-            "SqpBasePoint.from_power_flow needs the power flow, not ported "
-            "yet")
+        point (host-side numpy/scipy)."""
+        from ..pf.newton import solve_pf
+        res = solve_pf(data, start_method="warm", verbose=verbose)
+        return cls(pg=res.pg, qg=res.qg, vm=res.vm, va=res.va)
 
 
 def _host(a) -> np.ndarray:

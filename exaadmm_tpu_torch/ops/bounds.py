@@ -33,6 +33,9 @@ _PROBLEMS = {
     "tron_alm_branch": (6, 2, 33, 420, 62, 30),
     "tron_alm_qpsub": (6, 2, 43, 240, 124, 24),
     "tron_alm_ramp": (3, 1, 9, 25, 25, 2),
+    # the branch's gh and obj without the ALM terms, slack rows and cross
+    # terms; no constraints
+    "tron_alm_polar": (4, 0, 33, 230, 45, 0),
 }
 
 

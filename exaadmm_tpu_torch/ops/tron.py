@@ -29,6 +29,9 @@ Per lane (Lin & More's TRON as used by ExaTron):
     round cap.
 
 Derivatives come from a closed-form ``fgh_fn``; there is no autodiff path.
+A batch without constraints (``lam0`` of shape (0, B)) runs one ALM round,
+which finds ||c|| = 0 and finishes the lane: plain bound-constrained TRON,
+as ``tron_batched`` of the JAX package runs it.
 """
 
 from __future__ import annotations
@@ -356,7 +359,11 @@ def tron_alm_batched(
         if not bool(do_alm.any()):
             continue
         c = cons_fn(x, params)
-        cnorm = torch.amax(torch.abs(c), dim=0)
+        if c.shape[0] == 0:
+            # no constraints: ||c|| is 0, so the first round solves the lane
+            cnorm = torch.zeros_like(f)
+        else:
+            cnorm = torch.amax(torch.abs(c), dim=0)
         good = cnorm <= eta
         line_solved = good & (cnorm <= ctol)
 

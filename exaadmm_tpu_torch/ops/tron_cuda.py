@@ -1,7 +1,8 @@
 """The TRON/ALM batches: one small subproblem per lane.
 
 Replaces ``exaadmm_tpu/ops/tron_pallas.py::tron_alm_batched_pallas`` for
-three problem instances, which share one CUDA body (``csrc/tron_alm.cuh``):
+three problem instances, and ``tron_batched`` (plain XLA in the JAX package)
+for a fourth; all four share one CUDA body (``csrc/tron_alm.cuh``):
 
 - the ACOPF branch (n=6, ncon=2, ``branch_fgh_linelimit``,
   ``branch_alm_delta``): ``tron_alm_branch``, ``csrc/tron_alm_branch.cu``;
@@ -10,7 +11,10 @@ three problem instances, which share one CUDA body (``csrc/tron_alm.cuh``):
   ``csrc/tron_alm_ramp.cu``;
 - the QP subproblem (n=6, ncon=2, the reduced QP's closed-form ``qp_fgh``
   of ``models/qpsub/model.py``, ``branch_alm_delta``): ``tron_alm_qpsub``,
-  ``csrc/tron_alm_qpsub.cu``.
+  ``csrc/tron_alm_qpsub.cu``;
+- the ACOPF branch without line limits (n=4, ncon=0, ``branch_fgh_polar``;
+  one ALM round that finds no constraint): ``tron_alm_polar``,
+  ``csrc/tron_alm_polar.cu``.
 
 On a CUDA tensor a wrapper runs its kernel, one group of threads per lane
 (``tron_alm::kGroup``), each group the lane's own loop of the lockstep state
@@ -19,7 +23,8 @@ machine; on a CPU tensor it runs the plain version
 device raises.
 
 ``launches`` counts the branch kernel's launches, ``ramp_launches`` the ramp
-kernel's and ``qpsub_launches`` the QP-subproblem kernel's.
+kernel's, ``qpsub_launches`` the QP-subproblem kernel's and
+``polar_launches`` the polar kernel's.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from .tron import TronALMResult, tron_alm_batched
 launches = 0
 ramp_launches = 0
 qpsub_launches = 0
+polar_launches = 0
 
 # (x0, xl, xu, params, lam0, mu0, active0, x, lam, mu, minor, alm, cviol,
 #  B, gtol, frtol, ctol, mu_max, max_minor, max_auglag, step_cap, stream)
@@ -53,6 +59,8 @@ BRANCH = _Instance("tron_alm_branch", 6, 2, 33)
 RAMP = _Instance("tron_alm_ramp", 3, 1, 9)
 # the lower triangle of G (21), h0, w3, w4 (6 each), fc, e3, e4, scale
 QPSUB = _Instance("tron_alm_qpsub", 6, 2, 21 + 3 * 6 + 4)
+# the branch's parameter block (pack_params); no constraints
+POLAR = _Instance("tron_alm_polar", 4, 0, 33)
 _SUFFIX = {torch.float64: "_f64", torch.float32: "_f32"}
 
 
@@ -122,6 +130,20 @@ def tron_alm_qpsub_plain(x0, xl, xu, params, lam0, mu0, *, active0=None,
     return tron_alm_batched(qp_obj, qp_cons, qp_fgh, x0, xl, xu, params,
                             lam0, mu0, active0=active0,
                             alm_delta_fn=branch_alm_delta, **opts)
+
+
+def tron_alm_polar_plain(x0, xl, xu, params, lam0, mu0, *, active0=None,
+                         **opts) -> TronALMResult:
+    """The plain PyTorch version of the polar batch, on any device."""
+    from ..models.acopf.branch import (branch_cons_polar, branch_fgh_polar,
+                                       branch_obj_polar)
+
+    def obj(x, p, lam, mu):
+        return branch_obj_polar(x, p)
+
+    return tron_alm_batched(obj, branch_cons_polar, branch_fgh_polar, x0, xl,
+                            xu, params, lam0, mu0, active0=active0,
+                            alm_delta_fn=None, **opts)
 
 
 def _launch(inst: _Instance, x0, xl, xu, P, lam0, mu0, active0, gtol, frtol,
@@ -234,4 +256,26 @@ def tron_alm_qpsub(x0, xl, xu, params, lam0, mu0, *, gtol: float,
     global qpsub_launches
     if x0.shape[1] > 0:   # an empty batch launches no kernel
         qpsub_launches += 1
+    return res
+
+
+def tron_alm_polar(x0, xl, xu, params, lam0, mu0, *, gtol: float,
+                   frtol: float, ctol: float, mu_max: float, max_minor: int,
+                   max_auglag: int, step_cap: int | None = None,
+                   active0: torch.Tensor | None = None) -> TronALMResult:
+    """Solve the B line subproblems without line limits; x0/xl/xu (4, B),
+    lam0 (0, B), mu0 (B,), params as ``tron_alm_branch``'s. Lanes with
+    ``active0`` False come back untouched."""
+    opts = dict(gtol=gtol, frtol=frtol, ctol=ctol, mu_max=mu_max,
+                max_minor=max_minor, max_auglag=max_auglag, step_cap=step_cap)
+    if x0.device.type == "cpu":
+        return tron_alm_polar_plain(x0, xl, xu, params, lam0, mu0,
+                                    active0=active0, **opts)
+    if x0.device.type != "cuda":
+        raise ValueError(f"tron_alm_polar: unsupported device {x0.device}")
+    res = _launch(POLAR, x0, xl, xu, pack_params(params), lam0, mu0,
+                  active0, **opts)
+    global polar_launches
+    if x0.shape[1] > 0:   # an empty batch launches no kernel
+        polar_launches += 1
     return res

@@ -13,6 +13,8 @@ by those names, so a caller holding a JAX ``GridData`` or ``Solution`` (one
 - QP-subproblem solution: ``{"base": <solution dict>, "sqp_line": (N, 6),
   "v_prev": {"gen": ..., "line": ...}, "alm_lam_j": (N,), "alm_lam_k": (N,),
   "alm_mu": (N,)}``
+- MPEC solution: a solution dict whose blocks hold ``"gen"``, ``"vg"``,
+  ``"fg"``, ``"sto"`` and ``"line"``
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from .environment import (QPSUB_ALM_FIELDS, RAMP_FIELDS, SOLUTION_BLOCKS,
                           Blocks, BranchALMState, RampState, Solution,
                           SolutionMpacopf, SolutionQpsub)
 from .grid_data import GridData, build_csr
+from ..models.mpec.model import MPEC_FIELDS, MpecBlocks, SolutionMpec
 
 _SIZES = ("nbus", "ngen", "nline", "nline_padded")
 _INDEX_FIELDS = ("gen_bus", "line_from", "line_to")
@@ -141,4 +144,29 @@ def qpsub_solution_to_numpy(sol) -> dict:
            "sqp_line": _np(sol.sqp_line),
            "v_prev": {"gen": _np(sol.v_prev.gen), "line": _np(sol.v_prev.line)}}
     out.update({k: _np(getattr(sol, k)) for k in QPSUB_ALM_FIELDS})
+    return out
+
+
+def mpec_solution_from_numpy(d: dict, *, dtype=torch.float64,
+                             device="cpu") -> SolutionMpec:
+    """A port ``SolutionMpec`` from the nested dicts of
+    ``mpec_solution_to_numpy``."""
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float64)).to(
+            device=device, dtype=dtype)
+
+    blocks = {k: MpecBlocks(**{f: t(d[k][f]) for f in MPEC_FIELDS})
+              for k in SOLUTION_BLOCKS}
+    alm = d["branch_alm"]
+    return SolutionMpec(**blocks, branch_alm=BranchALMState(
+        lam1=t(alm["lam1"]), lam2=t(alm["lam2"]), mu=t(alm["mu"])))
+
+
+def mpec_solution_to_numpy(sol) -> dict:
+    """The state of a ``SolutionMpec`` of either package as nested numpy
+    dicts."""
+    out = {k: {f: _np(getattr(getattr(sol, k), f)) for f in MPEC_FIELDS}
+           for k in SOLUTION_BLOCKS}
+    alm = sol.branch_alm
+    out["branch_alm"] = {k: _np(getattr(alm, k)) for k in ("lam1", "lam2", "mu")}
     return out

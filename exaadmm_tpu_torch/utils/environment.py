@@ -16,6 +16,8 @@ and ``to`` moves every tensor to another device or dtype.
 - ``SolutionQpsub`` is the QP-subproblem state: a ``Solution``, the line
   deltas, the previous v and the per-line 1j/1k ALM state,
 - ``IterationInformation`` holds the host-side counters and scalars.
+
+The MPEC state (``SolutionMpec``) lives in ``models/mpec/model.py``.
 """
 
 from __future__ import annotations
@@ -86,8 +88,11 @@ class AdmmEnv:
     params: Parameters
     tight_factor: float = 1.0
     use_linelimit: bool = True
+    use_projection: bool = False
     load_specified: bool = False  # per-period loads given (multi-period)
     horizon_length: int = 1
+    storage_ratio: float = 0.0    # MPEC
+    droop: float = 0.04           # MPEC
 
 
 @dataclasses.dataclass
@@ -263,3 +268,7 @@ class IterationInformation:
     # worst branch line-limit constraint violation of the last inner iteration
     max_cviol: float = 0.0
     time_overall: float = 0.0
+    # the power-flow projection (``use_projection``): its wall time and the
+    # power-flow mismatch it reached (None when it did not run)
+    time_projection: float = 0.0
+    pf_residual: float | None = None

@@ -1,0 +1,30 @@
+"""End-of-solve summary (reference src/utils/print_statistics.jl:1-21).
+
+Counterpart of ``exaadmm_tpu/utils/print_statistics.py``, over the fields
+the port's ``IterationInformation`` keeps (it has no per-hook wall times
+and no two-pass branch counters)."""
+
+from __future__ import annotations
+
+from .environment import IterationInformation
+
+
+def print_statistics(info: IterationInformation, extra: dict | None = None):
+    print(" ** Summary")
+    print(f"Status  . . . . . . . . . . . . . {info.status}")
+    print(f"Objective . . . . . . . . . . . . {info.objval:.6e}")
+    print(f"Residual (||Ax+By||)  . . . . . . {info.mismatch:.6e}")
+    print(f"Outer iterations  . . . . . . . . {info.outer}")
+    print(f"Cumulative iterations . . . . . . {info.cumul}")
+    if info.cumul > 0:
+        print(f"Time per iteration (secs) . . . . "
+              f"{info.time_overall / info.cumul:.4f}")
+    print(f"Total time (secs) . . . . . . . . {info.time_overall:.2f}")
+    if info.time_projection > 0.0:
+        print(f"Projection time (secs)  . . . . . {info.time_projection:.2f}")
+    if info.pf_residual is not None:
+        print(f"Power-flow residual . . . . . . . {info.pf_residual:.3e}")
+    if info.max_cviol > 0.0:
+        print(f"Max line-limit violation  . . . . {info.max_cviol:.3e}")
+    for k, v in (extra or {}).items():
+        print(f"{k:<34}{v}")

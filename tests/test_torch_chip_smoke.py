@@ -25,8 +25,10 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     loads = load_time_series(chip_smoke.DEMAND9)
     res = chip_smoke.run("cpu", data, data, loads, 3)
     out = capsys.readouterr().out
-    for phase in ("1", "1b", "2", "2b", "2c", "3", "3b", "3c", "4", "5", "6"):
+    for phase in ("1", "1b", "1c", "2", "2b", "2c", "2d", "3", "3b", "3c",
+                  "3d", "3e", "3f", "4", "5", "6", "7", "8"):
         assert f"phase {phase}:" in out
+    assert "gens (3, 6), storage (1, 2)" in out   # the MPEC bus sums
     assert "phase 2: tron_alm_branch x 3 periods" in out
     assert "phase 2c: tron_alm_qpsub without line limits" in out
     assert "phase 3b: case9 x 1 period" in out
@@ -35,6 +37,16 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     assert res["case9"]["cumul"] == chip_smoke.PIN_CUMUL
     assert res["case9_mp"]["outer"] == chip_smoke.MP_PIN_OUTER
     assert res["case9_mp"]["cumul"] == chip_smoke.MP_PIN_CUMUL
+    assert (res["case9_polar"]["outer"], res["case9_polar"]["cumul"]) == (
+        chip_smoke.POLAR_PIN_OUTER, chip_smoke.POLAR_PIN_CUMUL)
+    for label, (outer, cumul, _) in chip_smoke.MPEC_PINS.items():
+        got = res["case9_mpec"][label]
+        assert (got["outer"], got["cumul"]) == (outer, cumul)
+    assert [p[:2] for p in res["case9_rolling"]["periods"]] == [
+        p[:2] for p in chip_smoke.ROLLING_PINS]
+    assert res["case9_rolling"]["pf_residual"] <= 1e-6
+    assert res["main_mpec"]["nstorage"] == 1   # ceil(9 * 0.1)
+    assert set(res["polar"]) == {"f64", "f32"}
     assert res["case9_qp"]["outer"] == chip_smoke.QP_PIN_ITERS
     assert res["case9_qp"]["cumul"] == chip_smoke.QP_PIN_ITERS
     assert abs(res["case9_qp"]["obj"] - chip_smoke.QP_PIN_OBJ) <= 1e-8
@@ -42,7 +54,7 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     assert set(res["qpsub"]) == {"f64", "f32", "f64_nolimit", "f32_nolimit"}
     names = [k["name"] for k in res["kernels"]]
     assert names == ["tron_alm_branch", "tron_alm_ramp", "tron_alm_qpsub",
-                     "bus_scatter"]
+                     "bus_scatter", "tron_alm_polar"]
     for k in res["kernels"]:
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -52,9 +64,13 @@ def test_rehearsal_on_cpu(case9_path, capsys):
         assert k["bound_ms"] > 0.0
         assert (k["library_ms"] is None) == (k["name"] != "bus_scatter")
         assert os.path.isfile(os.path.join(ROOT, k["source"]))
-        path, line = k["replaces"].split(":")
+        path, line = k["replaces"].split(" ")[0].split(":")
         with open(os.path.join(ROOT, path)) as f:
-            assert "def " in f.read().splitlines()[int(line) - 1]
+            text = f.read().splitlines()[int(line) - 1]
+        # a TPU kernel's function, or the JAX call that runs the polar
+        # batch as plain XLA
+        assert ("tron_batched(" in text if k["name"] == "tron_alm_polar"
+                else "def " in text)
     json.dumps(res["kernels"])
 
 
@@ -94,3 +110,21 @@ def test_script_refuses_without_cuda():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_polar_bound_below_branch():
+    """The polar instance moves 425 B a lane (46 values and a flag read, 6
+    values and two ints written) against the branch's 521, and does fewer
+    operations a step; its bound on the same batch is positive and below
+    the branch's."""
+    from exaadmm_tpu_torch.ops import bounds
+
+    B = 15710
+    assert bounds.tron_bytes("tron_alm_polar", 1, 8)["total"] == 425
+    assert 0 < bounds.step_ops("tron_alm_polar") < bounds.step_ops(
+        "tron_alm_branch")
+    polar = bounds.bound(bounds.tron_bytes("tron_alm_polar", B, 8)["total"],
+                         bounds.tron_ops("tron_alm_polar", 5 * B, B, B))[0]
+    branch = bounds.bound(bounds.tron_bytes("tron_alm_branch", B, 8)["total"],
+                          bounds.tron_ops("tron_alm_branch", 5 * B, B, B))[0]
+    assert 0.0 < polar < branch

@@ -37,8 +37,9 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     lines = dict(ln.split(" ", 1) for ln in out.stdout.splitlines())
     assert lines["BAD"] == "[]"
-    # every module of the package, the multi-period and qpsub ones included
-    assert int(lines["COUNT"]) >= 30
+    # every module of the package, the multi-period, qpsub, MPEC and power
+    # flow ones included
+    assert int(lines["COUNT"]) >= 38
 
 
 def test_cuda_device_without_cuda_raises(case9_path):
@@ -57,6 +58,13 @@ def _default_device_call(name, case9_path):
         return lambda: exaadmm_tpu_torch.solve_mpacopf(
             case9_path, os.path.join(ROOT, "data", "case9_demand"),
             end_period=2, verbose=0)
+    if name == "solve_acopf_mpec":
+        return lambda: exaadmm_tpu_torch.solve_acopf_mpec(case9_path,
+                                                          verbose=0)
+    if name == "solve_acopf_rolling":
+        return lambda: exaadmm_tpu_torch.solve_acopf_rolling(
+            case9_path, os.path.join(ROOT, "data", "case9_demand"),
+            end_period=2, verbose=0)
     from exaadmm_tpu_torch.models.qpsub.model import QP_KEYS
     from exaadmm_tpu_torch.models.qpsub.sqp import (SqpBasePoint,
                                                     build_qp_inputs)
@@ -70,7 +78,8 @@ def _default_device_call(name, case9_path):
 
 
 @pytest.mark.parametrize("name", ["solve_acopf", "solve_mpacopf",
-                                  "solve_qpsub"])
+                                  "solve_qpsub", "solve_acopf_mpec",
+                                  "solve_acopf_rolling"])
 def test_entry_points_default_to_cuda(name, case9_path):
     """With no ``device`` an entry point asks for the card, so without one
     it raises instead of running on the CPU."""
@@ -96,6 +105,9 @@ def test_wrappers_refuse_other_devices():
         tron_cuda.tron_alm_ramp(x[:3], x[:3], x[:3], {}, x[:1], x[0], **opts)
     with pytest.raises(ValueError, match="unsupported device"):
         tron_cuda.tron_alm_qpsub(x, x, x, {}, x[:2], x[0], **opts)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tron_cuda.tron_alm_polar(x[:4], x[:4], x[:4], {}, x[:0], x[0],
+                                 **opts)
 
 
 def test_cpu_wrappers_launch_no_kernel(case9_path):
@@ -106,9 +118,15 @@ def test_cpu_wrappers_launch_no_kernel(case9_path):
     from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
 
     bus_cuda.launches = tron_cuda.launches = tron_cuda.ramp_launches = 0
-    tron_cuda.qpsub_launches = 0
+    tron_cuda.qpsub_launches = tron_cuda.polar_launches = 0
     exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
                                   inner_iterlim=2, verbose=0, device="cpu")
+    exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
+                                  inner_iterlim=2, use_linelimit=False,
+                                  verbose=0, device="cpu")
+    exaadmm_tpu_torch.solve_acopf_mpec(case9_path, outer_iterlim=1,
+                                       inner_iterlim=2, storage_ratio=0.3,
+                                       verbose=0, device="cpu")
     exaadmm_tpu_torch.solve_mpacopf(
         case9_path, os.path.join(ROOT, "data", "case9_demand"), end_period=2,
         outer_iterlim=1, inner_iterlim=2, warm_start=False, verbose=0,
@@ -120,3 +138,4 @@ def test_cpu_wrappers_launch_no_kernel(case9_path):
                                   outer_iterlim=2, verbose=0, device="cpu")
     assert bus_cuda.launches == 0 and tron_cuda.launches == 0
     assert tron_cuda.ramp_launches == 0 and tron_cuda.qpsub_launches == 0
+    assert tron_cuda.polar_launches == 0

@@ -63,10 +63,16 @@ def test_generated_case_and_loads_run():
 
 
 def test_projection_is_not_ported(case9_path):
-    with pytest.raises(NotImplementedError):
-        exaadmm_tpu_torch.solve_mpacopf(case9_path, DEMAND, end_period=2,
-                                        verbose=0, use_projection=True,
-                                        device="cpu")
+    """The projection is ported now: every period is projected onto its own
+    power flow (its parity with the JAX package is in test_torch_pf.py)."""
+    res = exaadmm_tpu_torch.solve_mpacopf(case9_path, DEMAND, end_period=2,
+                                          outer_iterlim=1, verbose=0,
+                                          warm_start=False,
+                                          use_projection=True, device="cpu")
+    assert res.info.pf_residual <= 1e-6
+    assert res.env.use_projection
+    v = res.solution.acopf.v.line
+    assert v.shape == (2, 9, 8) and bool(torch.isfinite(v).all())
 
 
 def test_cuda_device_without_cuda_raises(case9_path):

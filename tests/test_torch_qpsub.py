@@ -149,9 +149,13 @@ def test_build_qp_inputs_matches_jax(case):
 
 
 def test_from_power_flow_not_ported():
-    tdata, _ = _data("case9")
-    with pytest.raises(NotImplementedError, match="power flow"):
-        TS.SqpBasePoint.from_power_flow(tdata)
+    """The power flow is ported now: the base point is the NR warm start,
+    equal to the JAX package's (more in test_torch_pf.py)."""
+    tdata, jdata = _data("case9")
+    got = TS.SqpBasePoint.from_power_flow(tdata)
+    ref = JS.SqpBasePoint.from_power_flow(jdata)
+    for k in ("pg", "qg", "vm", "va"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(ref, k))
 
 
 @pytest.mark.parametrize("case,pad", [("case9", 1), ("case9", 4),

@@ -74,7 +74,6 @@ def test_poststep_matches_jax(pin_result):
     (dict(onelevel=False), "two-level"),
     (dict(mesh=object()), "multi-GPU"),
     (dict(pad_lines_to=8), "multi-GPU"),
-    (dict(use_projection=True), "power-flow projection"),
 ])
 def test_unported_options_raise(case9_path, kw, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -126,7 +126,13 @@ def test_fp32_solve_runs(case9_path):
 
 
 def test_no_linelimit_is_not_ported(case9_path):
-    with pytest.raises(NotImplementedError):
-        exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
-                                      verbose=0, use_linelimit=False,
-                                      device="cpu")
+    """The polar path without line limits is ported now: one outer
+    iteration runs it, with no ALM state and no constraint violation (its
+    parity with the JAX package is in test_torch_polar.py)."""
+    res = exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
+                                        verbose=0, use_linelimit=False,
+                                        device="cpu")
+    assert res.info.max_cviol == 0.0
+    assert np.isfinite(res.info.mismatch)
+    assert torch.equal(res.solution.branch_alm.mu,
+                       torch.full_like(res.solution.branch_alm.mu, 10.0))
