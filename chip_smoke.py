@@ -17,6 +17,10 @@ per source, all at once) and runs, in order:
    time per launch of both (the host queues every rep before the device
    starts, ``utils/timing.py``) beside their host enqueue time per call and
    the kernel's bound (``ops/bounds.py``);
+1d. the same scatter at the shapes phase 9b's two ranks give it: each
+   rank's arc values over its ``local_grid`` CSR (its half of the lines
+   against all 9,241 buses, some of them with no local arc), fp64 and fp32,
+   with phase 1's thresholds;
 1b. the same scatter over 8 periods folded into the channel axis (the
    multi-period bus update, synthetic 2869 buses), on the arc values and on
    the generator values with the ramp terms blended in: bit-identical to 8
@@ -37,6 +41,9 @@ per source, all at once) and runs, in order:
    p99 and max minor iterations, the kernel's device time, the us per step
    of the slowest lane (device time over the max minor iterations), its
    host enqueue time and its bound;
+2e. the branch TRON/ALM kernel at the shapes phase 9b's two ranks give
+   it: phase 2's batch cut to each rank's 7,855-lane window
+   (``local_model``, ``local_solution``), with phase 2's thresholds;
 2b. the ramp TRON/ALM kernel against its plain version on the 3,010-lane
    ramp batch of synthetic 2869 buses over 8 periods, at the first inner
    iteration, generator prox targets perturbed from a numpy seed, step_cap
@@ -76,6 +83,14 @@ per source, all at once) and runs, in order:
    every period Solved within 1 outer and 2 % of its pin; then case9 with
    ``use_projection=True``: power-flow residual <= 1e-6 and every line copy
    of a bus's w equal;
+3g. case118 end to end through ``solve_acopf`` at the reference's settings
+   (rho (4e2, 4e4), outer_eps 2e-5): Solved within 1 outer and 2 % cumul of
+   the port's own CPU result 20 / 1281, objective within 1e-6 relative of
+   129638.3553876704 and within 1e-4 of the reference's 129645.676;
+3h. checkpoint on the card: case9, 5 outer iterations, ``save_solution``,
+   ``load_solution`` into a fresh ``init_solution`` on the card with every
+   leaf bit-equal, then a resume with the saved beta to Solved, the
+   objective in 5296-5304.5;
 4. the single-period main path at full size: synthetic 9241 buses, fp64,
    flat start at rho (3e3, 3e5), 3 outer iterations of at most 100 inner
    (each outer ends when primres reaches its eps, about 20 inner): inner
@@ -97,14 +112,31 @@ per source, all at once) and runs, in order:
    (3e3, 3e5), 10 outer iterations of at most 100 inner, outer_eps 0:
    phase 4's rates and figures;
 8. phase 4's configuration without line limits (the polar kernel), over
-   10 outer iterations like phase 7: the same report.
+   10 outer iterations like phase 7: the same report;
+9a. the lines-split-across-ranks path (``parallel/``) at world size 1 over
+   NCCL, phase 4's configuration through ``solve_acopf(mesh=...)``: the
+   same outer and cumul and a bit-equal objective as phase 4 in the same
+   call, exactly 4 all-reduces per inner iteration (bus sums, residual
+   partials, branch effort sums, max_cviol), the inner it/s beside phase
+   4's;
+9b. two ranks on the one card over gloo (the all-reduce payloads staged
+   through pinned host memory, ``parallel/sharding.py``): case9, 6 outer
+   iterations, against the one-process card run (the same cumul, objective
+   within 1e-8 relative); then phase 4's configuration on the two ranks:
+   cumul within 2 % of phase 4's, the inner it/s beside it (two host loops
+   share one card: a correctness phase, not a speed claim). A rank that
+   hangs fails the phase: every collective and the join have a time limit.
+   NCCL between cards is not run here: the machine has one card.
 
-The kernels' launch counters are zeroed just before phases 4, 5, 6, 7 and
-8 and read just after each; the ``launches`` of a kernel in the JSON line
-are the sum over those five runs.
+The kernels' launch counters are zeroed just before phases 4, 5, 6, 7, 8,
+9a and 9b's full-size run (there on rank 0, which reports them) and read
+just after each; the ``launches`` of a kernel in the JSON line are the sum
+over those seven runs.
 
 ``--profile`` adds a breakdown of one iteration of the configurations of
-phases 4 to 8 (host time per hook, device time by kernel, idle share);
+phases 4 to 8 (host time per hook, device time by kernel, idle share) and
+``utils/profiling.py::profile_iteration``'s device time per hook of phase
+4's model;
 ``--solve`` adds the time to tolerance of phase 4's configuration.
 
 Each phase prints one line of numbers; any failure raises, so the script
@@ -125,6 +157,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -144,6 +177,18 @@ ROLLING_PINS = ((20, 973, 5286.652017310178), (9, 166, 5403.734908384519),
 MPEC_STORAGE = dict(storage_ratio=0.1, storage_charge_max=0.1, droop=0.04)
 MP_PIN_OUTER, MP_PIN_CUMUL, MP_PIN_OBJ = 20, 1007, 16015.6958770167
 QP_PIN_ITERS, QP_PIN_OBJ = 5107, -21.92744641968529
+CASE118 = os.path.join(ROOT, "data", "case118.m")
+# (outer, cumul, objective) of the port on the CPU, fp64; the reference's
+# objective beside it
+CASE118_PIN = (20, 1281, 129638.3553876704)
+CASE118_REFERENCE_OBJ = 129645.676
+# the two-rank case9 run of phase 9b (tests/test_torch_sharding.py's)
+RANKS = 2
+SHARD9_KW = dict(rho_pq=4e2, rho_va=4e4, outer_eps=2e-5, outer_iterlim=6,
+                 verbose=0)
+# phase 4's solve, which phases 9a and 9b repeat over a mesh
+MAIN_KW = dict(rho_pq=3e3, rho_va=3e5, outer_iterlim=3, inner_iterlim=100,
+               outer_eps=0.0, verbose=0)
 QP_ITERS = 200
 KERNEL_SOURCES = {
     "tron_alm_branch": ("exaadmm_tpu_torch/csrc/tron_alm_branch.cu",
@@ -245,6 +290,18 @@ def _hold_scatter(sums, tol: float, label: str):
     return worst_rel, worst_abs
 
 
+def _rank_views(model, sol, nranks: int = RANKS):
+    """What each of ``nranks`` ranks of the lines-split-across-ranks path
+    runs on: (rank, its local model, its local state), cut from the whole
+    padded ``model`` and ``sol`` as ``run_sharded`` cuts them. No process
+    group is needed: nothing here reduces across ranks."""
+    from exaadmm_tpu_torch.parallel import sharding
+    for rank in range(nranks):
+        mesh = sharding.Mesh(group=None, rank=rank, size=nranks)
+        yield (rank, sharding.local_model(model, mesh),
+               sharding.local_solution(sol, mesh))
+
+
 def phase1_bus(dev, data, on_card: bool) -> dict:
     from exaadmm_tpu_torch.models.acopf import kernels
     from exaadmm_tpu_torch.models.acopf import model as M
@@ -254,8 +311,8 @@ def phase1_bus(dev, data, on_card: bool) -> dict:
 
     out = {}
     for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 1e-6)):
-        model = M.build_model(data, Parameters(verbose=0), dtype=dtype,
-                              device=dev)
+        model = M.build_model(data, Parameters(verbose=0),
+                              pad_lines_to=RANKS, dtype=dtype, device=dev)
         sol = M.init_solution(model, 3e3, 3e5)
         gd = model.grid
         arcs = kernels.bus_arc_values(sol.v, sol.z, sol.l, sol.rho, gd)
@@ -285,6 +342,20 @@ def phase1_bus(dev, data, on_card: bool) -> dict:
               f"{lib_ms:.5f}, bound {bound_ms:.5f} ({bound_by}, "
               f"{nb['total']} B); host enqueue ms per call: kernel "
               f"{enq:.5f}, index_add_ {lib_enq:.5f}")
+        for rank, local, lsol in _rank_views(model, sol):
+            lg = local.grid
+            larcs = kernels.bus_arc_values(lsol.v, lsol.z, lsol.l, lsol.rho,
+                                           lg)
+            empty = int((lg.arc_ptr[1:] == lg.arc_ptr[:-1]).sum())
+            rel, worst = _hold_scatter(
+                ((larcs, lg.arc_bus, lg.arc_ptr, lg.arc_idx),), tol,
+                f"bus_scatter {dtype} rank {rank} of {RANKS}")
+            out[key]["abs"] = max(out[key]["abs"], worst)
+            print(f"phase 1d: bus_scatter {key} rank {rank} of {RANKS}: "
+                  f"arcs {tuple(larcs.shape)} over {lg.arc_idx.shape[0]} CSR "
+                  f"entries -> {lg.nbus} buses ({empty} with no local arc): "
+                  f"max rel diff {rel:.3e} (tol {tol:.0e}), max abs diff "
+                  f"{worst:.3e}, bit-identical reruns")
     return out
 
 
@@ -352,29 +423,37 @@ def phase2_tron(dev, data, on_card: bool) -> dict:
     out = {}
     for dtype in (torch.float64, torch.float32):
         par = Parameters(verbose=0, tron_step_cap=50)
-        model = M.build_model(data, par, dtype=dtype, device=dev)
+        model = M.build_model(data, par, pad_lines_to=RANKS, dtype=dtype,
+                              device=dev)
         sol = M.init_solution(model, 4e2, 4e4)
         # perturb the prox targets so the lanes spread in difficulty
         rng = np.random.default_rng(0)
         noise = torch.as_tensor(rng.normal(0, 0.05, tuple(sol.v.line.shape)))
         sol = sol.replace(v=sol.v.replace(
             line=sol.v.line + noise.to(device=dev, dtype=dtype)))
-        x0, xl, xu, params, lam0, mu0, act = branch.branch_inputs(
-            sol, model.grid, par, 1)
         opts = branch.branch_tolerances(par, dtype)
-
-        def kernel():
-            return tron_cuda.tron_alm_branch(x0, xl, xu, params, lam0, mu0,
-                                             active0=act, **opts)
-
-        def plain():
-            return tron_cuda.tron_alm_branch_plain(
-                x0, xl, xu, params, lam0, mu0, active0=act, **opts)
-
         key = "f64" if dtype == torch.float64 else "f32"
-        out[key] = _tron_vs_plain("phase 2: tron_alm_branch",
-                                  "tron_alm_branch", kernel, plain, act,
-                                  dtype, dev)
+
+        def hold(label, sol, gd):
+            x0, xl, xu, params, lam0, mu0, act = branch.branch_inputs(
+                sol, gd, par, 1)
+
+            def kernel():
+                return tron_cuda.tron_alm_branch(
+                    x0, xl, xu, params, lam0, mu0, active0=act, **opts)
+
+            def plain():
+                return tron_cuda.tron_alm_branch_plain(
+                    x0, xl, xu, params, lam0, mu0, active0=act, **opts)
+
+            return _tron_vs_plain(label, "tron_alm_branch", kernel, plain,
+                                  act, dtype, dev)
+
+        out[key] = hold("phase 2: tron_alm_branch", sol, model.grid)
+        for rank, local, lsol in _rank_views(model, sol):
+            r = hold(f"phase 2e: tron_alm_branch rank {rank} of {RANKS}",
+                     lsol, local.grid)
+            out[key]["dx_all"] = max(out[key]["dx_all"], r["dx_all"])
     return out
 
 
@@ -710,10 +789,9 @@ def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
     _sync(dev)
     _zero_launches()
     t0 = time.perf_counter()
-    res = E.solve_acopf(data.case, data=data, rho_pq=3e3, rho_va=3e5,
-                        outer_iterlim=outer_iterlim, inner_iterlim=100,
-                        outer_eps=0.0, use_linelimit=use_linelimit, verbose=0,
-                        device=dev)
+    res = E.solve_acopf(data.case, data=data, use_linelimit=use_linelimit,
+                        device=dev,
+                        **dict(MAIN_KW, outer_iterlim=outer_iterlim))
     _sync(dev)
     secs = time.perf_counter() - t0
     launches = _launches()
@@ -742,7 +820,226 @@ def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
         _check(launches["bus_scatter"] == 2 * info.cumul,
                f"{label}: bus launches {launches}")
     return dict(launches=launches, rate=rate, seconds=secs,
-                mismatch=info.mismatch, peak=peak)
+                mismatch=info.mismatch, peak=peak, outer=info.outer,
+                cumul=info.cumul, obj=info.objval)
+
+
+def phase3g_case118(dev, on_card: bool, outer_iterlim: int = 25) -> dict:
+    """case118 at the reference's settings; a rehearsal may cut
+    ``outer_iterlim``, and then only finiteness is held."""
+    import exaadmm_tpu_torch as E
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = E.solve_acopf(CASE118, outer_iterlim=outer_iterlim, rho_pq=4e2,
+                        rho_va=4e4, outer_eps=2e-5, verbose=0, device=dev)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    info = res.info
+    launches = _launches()
+    outer, cumul, obj = CASE118_PIN
+    print(f"phase 3g: case118 ({res.data.nbus} buses, {res.data.nline} "
+          f"lines, {res.data.ngen} gens) {info.status} outer {info.outer} "
+          f"(CPU {outer}) cumul {info.cumul} (CPU {cumul}) obj "
+          f"{info.objval!r} (rel diff to the CPU's "
+          f"{abs(info.objval - obj) / obj:.2e}, to the reference's "
+          f"{abs(info.objval - CASE118_REFERENCE_OBJ) / CASE118_REFERENCE_OBJ:.2e}"
+          f") in {secs:.2f} s ({info.cumul / info.time_overall:.1f} inner "
+          f"it/s in the ADMM loop); launches {launches}")
+    _check(bool(np.isfinite(info.objval))
+           and bool(torch.isfinite(res.solution.u.line).all()),
+           "case118: not finite")
+    if outer_iterlim >= 25:
+        _near_pin("case118", info, outer, cumul, obj)
+        _check(abs(info.objval - CASE118_REFERENCE_OBJ)
+               <= 1e-4 * CASE118_REFERENCE_OBJ,
+               f"case118: obj {info.objval!r} against the reference")
+    if on_card:
+        _check(launches["tron_alm_branch"] == info.cumul
+               and launches["bus_scatter"] == 2 * info.cumul,
+               f"case118: launches {launches} for {info.cumul} inner "
+               f"iterations")
+    return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
+                seconds=secs)
+
+
+def phase3h_checkpoint(dev, on_card: bool) -> dict:
+    """Save after 5 outer iterations of case9, load into a fresh flat start
+    on ``dev`` (every leaf bit-equal) and resume to Solved."""
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.algorithms.admm_two_level import admm_two_level
+    from exaadmm_tpu_torch.models.acopf import model as M
+    from exaadmm_tpu_torch.utils.checkpoint import _leaves
+    from exaadmm_tpu_torch.utils.environment import Parameters
+
+    data = E.opf_loaddata(CASE9, verbose=0)
+    par = Parameters(verbose=0, outer_iterlim=5, outer_eps=2e-5)
+    model = M.build_model(data, par, device=dev)
+    sol5, info5 = admm_two_level(model, M.init_solution(model, 4e2, 4e4))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        E.save_solution(path, sol5, meta={"outer": info5.outer,
+                                          "beta": par.beta})
+        size = os.path.getsize(path)
+        restored, meta = E.load_solution(path,
+                                         M.init_solution(model, 4e2, 4e4))
+    pairs = list(zip(_leaves(sol5), _leaves(restored)))
+    for (name, a), (_, b) in pairs:
+        _check(b.device == a.device and b.dtype == a.dtype
+               and bool(torch.equal(a, b)), f"checkpoint: leaf {name}")
+    _check(meta["outer"] == 5, f"checkpoint: meta {meta}")
+    par2 = Parameters(verbose=0, outer_iterlim=20, outer_eps=2e-5,
+                      initial_beta=meta["beta"])
+    model2 = M.build_model(data, par2, device=dev)
+    _, info = admm_two_level(model2, restored)
+    print(f"phase 3h: checkpoint of case9 after {info5.outer} outer / "
+          f"{info5.cumul} inner: {len(pairs)} leaves, {size} B, every leaf "
+          f"bit-equal on {restored.u.line.device}; resumed with beta "
+          f"{meta['beta']:.3e}: {info.status} after {info.outer} more outer "
+          f"/ {info.cumul} inner, obj {info.objval!r}")
+    _check(info.status == "Solved", f"checkpoint resume: {info.status}")
+    _check(5296.0 <= info.objval <= 5304.5,
+           f"checkpoint resume: obj {info.objval}")
+    return dict(leaves=len(pairs), outer=info.outer, cumul=info.cumul,
+                obj=info.objval)
+
+
+def phase9a_mesh_one_rank(dev, data, on_card: bool, base: dict) -> dict:
+    """Phase 4's solve through the mesh path at world size 1 (NCCL on the
+    card, gloo on the CPU), against phase 4's result ``base``."""
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.parallel import distributed, sharding
+
+    distributed.initialize(f"tcp://127.0.0.1:{distributed.free_port()}",
+                           world_size=1, rank=0, device=dev, timeout=120.0)
+    try:
+        mesh = sharding.make_mesh()
+        _check(mesh.size == 1 and mesh.group is not None
+               and mesh.backend == ("nccl" if on_card else "gloo"),
+               f"mesh of one rank: {mesh}")
+        # the first collective sets the communicator up: keep it out of the
+        # loop's time
+        sharding.all_reduce_sum(torch.zeros(8, device=dev), mesh)
+        _sync(dev)
+        _zero_launches()
+        sharding.reset_counts()
+        sharding.log = []
+        t0 = time.perf_counter()
+        res = E.solve_acopf(data.case, data=data, mesh=mesh, device=dev,
+                            **MAIN_KW)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        log, sharding.log = sharding.log, None
+    finally:
+        distributed.shutdown()
+    launches = _launches()
+    info = res.info
+    counts = dict(sharding.counts)
+    reduces = counts["all_reduce_sum"] + counts["all_reduce_max"]
+    per_it = reduces / info.cumul
+    nbytes = sum(b for k, _, b in log if k != "all_gather") / info.cumul
+    rate = info.cumul / info.time_overall
+    print(f"phase 9a: {data.case} over a mesh of 1 rank ({mesh.backend}): "
+          f"{info.outer} outer, {info.cumul} inner (phase 4: {base['outer']}"
+          f" / {base['cumul']}), obj {info.objval!r} (phase 4: "
+          f"{base['obj']!r}); {per_it:.2f} all-reduces and {nbytes:.0f} B "
+          f"per inner iteration, {counts['all_gather']} gathers after the "
+          f"loop; ADMM loop {info.time_overall:.3f} s = {rate:.2f} inner "
+          f"it/s (phase 4: {base['rate']:.2f}), whole call {secs:.3f} s; "
+          f"launches {launches}")
+    _check((info.outer, info.cumul) == (base["outer"], base["cumul"]),
+           f"mesh of one rank: {info.outer} / {info.cumul}")
+    _check(info.objval == base["obj"],
+           f"mesh of one rank: obj {info.objval!r} != {base['obj']!r}")
+    _check(reduces == 4 * info.cumul,
+           f"mesh of one rank: {reduces} all-reduces for {info.cumul} inner "
+           f"iterations")
+    _check(res.solution.u.line.shape[0] == data.nline,
+           "mesh of one rank: line count")
+    if on_card:
+        _check(launches["tron_alm_branch"] == info.cumul
+               and launches["bus_scatter"] == 2 * info.cumul,
+               f"mesh of one rank: launches {launches}")
+    return dict(launches=launches, rate=rate, outer=info.outer,
+                cumul=info.cumul, obj=info.objval, per_it=per_it,
+                bytes_per_it=nbytes)
+
+
+def _two_rank_solves(mesh, dev, data):
+    """What a rank of phase 9b runs: case9 over the mesh, then phase 4's
+    configuration; rank 0's numbers go back."""
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.parallel import sharding
+
+    small = E.solve_acopf(CASE9, mesh=mesh, device=dev, **SHARD9_KW)
+    _sync(dev)
+    _zero_launches()
+    sharding.reset_counts()
+    t0 = time.perf_counter()
+    res = E.solve_acopf(data.case, data=data, mesh=mesh, device=dev,
+                        **MAIN_KW)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+
+    def summary(r):
+        i = r.info
+        return dict(status=i.status, outer=i.outer, cumul=i.cumul,
+                    obj=i.objval, loop=i.time_overall,
+                    lines=tuple(r.solution.u.line.shape),
+                    finite=bool(torch.isfinite(r.solution.u.line).all()))
+
+    return dict(small=summary(small), big=summary(res), seconds=secs,
+                launches=_launches(), counts=dict(sharding.counts),
+                backend=mesh.backend, device=str(dev))
+
+
+def phase9b_two_ranks(dev, data, on_card: bool, base: dict) -> dict:
+    """Two ranks sharing ``dev`` over gloo against the one-process runs:
+    case9 (computed here) and phase 4's result ``base``."""
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.parallel.distributed import spawn_ranks
+
+    one = E.solve_acopf(CASE9, device=dev, **SHARD9_KW).info
+    t0 = time.perf_counter()
+    got = spawn_ranks(_two_rank_solves, (data,), nprocs=RANKS,
+                      device=str(dev),
+                      timeout=120.0, join_timeout=600.0,
+                      threads=torch.get_num_threads())
+    secs = time.perf_counter() - t0
+    small, big = got["small"], got["big"]
+    rel = abs(small["obj"] - one.objval) / abs(one.objval)
+    rate = big["cumul"] / big["loop"]
+    reduces = got["counts"]["all_reduce_sum"] + got["counts"]["all_reduce_max"]
+    print(f"phase 9b: 2 ranks on {got['device']} over {got['backend']} in "
+          f"{secs:.1f} s with their start: case9 {small['outer']} outer / "
+          f"{small['cumul']} inner (one process {one.outer} / {one.cumul}), "
+          f"obj {small['obj']!r} (rel diff {rel:.2e}), lines "
+          f"{small['lines']}; {data.case} {big['outer']} outer / "
+          f"{big['cumul']} inner (phase 4: {base['outer']} / "
+          f"{base['cumul']}), obj {big['obj']!r} (phase 4: {base['obj']!r}),"
+          f" ADMM loop {big['loop']:.3f} s = {rate:.2f} inner it/s (phase "
+          f"4: {base['rate']:.2f}), {reduces / big['cumul']:.2f} all-reduces"
+          f" per inner iteration; rank 0's launches {got['launches']}")
+    _check(got["backend"] == "gloo", f"two ranks: backend {got['backend']}")
+    _check((small["outer"], small["cumul"]) == (one.outer, one.cumul),
+           f"two ranks, case9: {small['outer']} / {small['cumul']}")
+    _check(rel <= 1e-8, f"two ranks, case9: obj {small['obj']!r}")
+    _check(small["lines"] == (10, 8) and small["finite"],
+           f"two ranks, case9: lines {small['lines']}")
+    _check(abs(big["cumul"] - base["cumul"]) <= 0.02 * base["cumul"]
+           and big["outer"] == base["outer"],
+           f"two ranks, {data.case}: {big['outer']} / {big['cumul']}")
+    _check(abs(big["obj"] - base["obj"]) <= 1e-6 * abs(base["obj"])
+           and big["finite"], f"two ranks, {data.case}: obj {big['obj']!r}")
+    _check(reduces == 4 * big["cumul"],
+           f"two ranks: {reduces} all-reduces for {big['cumul']} inner "
+           f"iterations")
+    if on_card:
+        _check(got["launches"]["tron_alm_branch"] == big["cumul"]
+               and got["launches"]["bus_scatter"] == 2 * big["cumul"],
+               f"two ranks: launches {got['launches']}")
+    return dict(launches=got["launches"], rate=rate, cumul=big["cumul"],
+                obj=big["obj"], case9=small)
 
 
 def phase3d_case9_polar(dev, on_card: bool) -> dict:
@@ -1228,12 +1525,13 @@ def solve_to_tolerance(dev, data) -> dict:
     return dict(status=info.status, seconds=secs, cumul=info.cumul)
 
 
-def run(device, big_data, mp_data, mp_loads, T: int) -> dict:
+def run(device, big_data, mp_data, mp_loads, T: int,
+        case118_outer: int = 25) -> dict:
     """All phases on ``device``; ``big_data`` is the single-period grid,
     ``mp_data`` with ``mp_loads`` ((Pd, Qd), (nbus, T) each) the
     multi-period one. On a CPU device (a rehearsal) the wrappers run their
     plain versions, so the kernel comparisons and launch counts are not
-    meaningful there."""
+    meaningful there; a rehearsal may cut case118's depth."""
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     mp = (mp_data, mp_loads, T, on_card)
@@ -1252,6 +1550,8 @@ def run(device, big_data, mp_data, mp_loads, T: int) -> dict:
     results["case9_polar"] = phase3d_case9_polar(dev, on_card)
     results["case9_mpec"] = phase3e_case9_mpec(dev, on_card)
     results["case9_rolling"] = phase3f_case9_rolling_projection(dev, on_card)
+    results["case118"] = phase3g_case118(dev, on_card, case118_outer)
+    results["checkpoint"] = phase3h_checkpoint(dev, on_card)
     results["main"] = phase4_main(dev, big_data, on_card)
     results["main_mp"] = phase5_mpacopf(dev, *mp)
     results["main_qp"] = phase6_qpsub(dev, big_data, on_card)
@@ -1259,7 +1559,12 @@ def run(device, big_data, mp_data, mp_loads, T: int) -> dict:
     results["main_polar"] = phase4_main(dev, big_data, on_card,
                                         use_linelimit=False, label="phase 8",
                                         outer_iterlim=10)
-    main_runs = ("main", "main_mp", "main_qp", "main_mpec", "main_polar")
+    results["main_mesh1"] = phase9a_mesh_one_rank(dev, big_data, on_card,
+                                                  results["main"])
+    results["main_2ranks"] = phase9b_two_ranks(dev, big_data, on_card,
+                                               results["main"])
+    main_runs = ("main", "main_mp", "main_qp", "main_mpec", "main_polar",
+                 "main_mesh1", "main_2ranks")
     kern = []
     for name, key in (("tron_alm_branch", "tron"), ("tron_alm_ramp", "ramp"),
                       ("tron_alm_qpsub", "qpsub"), ("bus_scatter", "bus"),
@@ -1300,6 +1605,7 @@ def main() -> int:
     from exaadmm_tpu_torch.models.mpec import model as MM
     from exaadmm_tpu_torch.models.qpsub import model as Q
     from exaadmm_tpu_torch.utils.environment import Parameters
+    from exaadmm_tpu_torch.utils.profiling import profile_iteration
     from exaadmm_tpu_torch.utils.synthetic import (synthetic_case,
                                                    synthetic_load_profile)
 
@@ -1314,6 +1620,10 @@ def main() -> int:
         model = M.build_model(big, Parameters(verbose=0), device=dev)
         profile_main(dev, "phase 4", two_level_hooks(model),
                      M.init_solution(model, 3e3, 3e5), ("primres",))
+        hooks = profile_iteration(model, M.init_solution(model, 3e3, 3e5),
+                                  1e3, iters=10)
+        print("profile phase 4: profile_iteration, device ms per hook: "
+              + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in hooks.items()))
         model = _mp_model(dev, mp_data, mp_loads, T, torch.float64,
                           Parameters(verbose=0))
         profile_main(dev, "phase 5", two_level_hooks(model),

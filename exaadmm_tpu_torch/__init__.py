@@ -26,7 +26,16 @@ and the power-flow projection; ``solve_acopf_from_env`` re-runs one),
 ``solve_acopf_mpec`` (voltage/frequency control and storage) on the
 two-level ADMM; ``solve_qpsub`` (the QP subproblem of an outer SQP) on the
 one-level ADMM; ``solve_pf`` (Newton power flow, on the host with numpy
-and scipy).
+and scipy). ``python -m exaadmm_tpu_torch <case.m>`` runs them from the
+command line (``__main__.py``).
+
+Around them: ``save_solution`` / ``load_solution`` (``utils/checkpoint.py``)
+write and read any solver state in the JAX package's ``.npz`` format, for
+resuming a solve; ``utils/profiling.py`` times the ADMM hooks and writes
+profiler traces; ``parallel/`` splits the lines across the ranks of a
+``torch.distributed`` run, one process per GPU (the ``mesh`` argument of
+``solve_acopf``, ``solve_qpsub`` and ``solve_acopf_mpec``, ``--mesh N`` on
+the command line); ``AdmmEnv`` records what a solve was asked to do.
 
 This package imports neither jax nor ``exaadmm_tpu``.
 """
@@ -38,7 +47,8 @@ from .interface.solve_mpacopf import MpacopfResult, solve_mpacopf
 from .interface.solve_mpec import MpecResult, solve_acopf_mpec
 from .interface.solve_pf import solve_pf
 from .interface.solve_qpsub import QpsubResult, solve_qpsub
-from .utils.environment import Blocks, Parameters, Solution
+from .utils.checkpoint import load_solution, save_solution
+from .utils.environment import AdmmEnv, Blocks, Parameters, Solution
 from .utils.opfdata import opf_loaddata
 
 __version__ = "0.1.0"
@@ -55,6 +65,9 @@ __all__ = [
     "solve_qpsub",
     "QpsubResult",
     "solve_pf",
+    "AdmmEnv",
+    "save_solution",
+    "load_solution",
     "Parameters",
     "Solution",
     "Blocks",

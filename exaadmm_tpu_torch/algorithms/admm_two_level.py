@@ -12,6 +12,16 @@ break when primres <= eps_pri; primres is the one scalar read back per inner
 iteration. Outer: converged when ||u - v|| <= sqrt(nvar)*outer_eps;
 otherwise lz <- clamp(lz + beta z) and beta <- min(inc_c*beta, cap) when
 ||z|| > theta*||z_prev||.
+
+With ``Parameters.time_hooks`` the loop fills the ``time_*_update`` fields
+of ``IterationInformation`` (the JAX package's ``verbose >= 2`` stepping):
+it synchronizes the device after every hook, so the times are the hooks' and
+the loop is slower. With it off (the default) the loop issues no extra call.
+
+With the lines split across ranks (``parallel/sharding.py``) every rank runs
+this loop over its own model; the scalars read back here derive from
+all-reduced tensors and replicated data, so every rank breaks on the same
+iteration.
 """
 
 from __future__ import annotations
@@ -36,6 +46,24 @@ def _beta_cap(dtype) -> float:
     return 0.1 / float(eps)
 
 
+def _call(name, fn, *args, **kwargs):
+    return fn(*args, **kwargs)
+
+
+def _timed_call(info: IterationInformation, dev):
+    """``_call`` that adds the hook's seconds, device work included, to
+    ``info.time_<name>_update``."""
+    def call(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        field = f"time_{name}_update"
+        setattr(info, field, getattr(info, field) + time.perf_counter() - t0)
+        return out
+    return call
+
+
 def admm_two_level(model, sol: Solution,
                    info: IterationInformation | None = None, Pd=None, Qd=None):
     """Run the two-level ADMM; returns (sol, info).
@@ -49,6 +77,7 @@ def admm_two_level(model, sol: Solution,
     sqrt_d = float(model.nvar) ** 0.5
     outer_tol = sqrt_d * par.outer_eps
     dtype = sol.u.gen.dtype
+    call = _timed_call(info, sol.u.gen.device) if par.time_hooks else _call
 
     beta = min(par.initial_beta, _beta_cap(dtype))
     info.status = "IterationLimit"
@@ -70,10 +99,10 @@ def admm_two_level(model, sol: Solution,
         while inner < par.inner_iterlim:
             sol = model.inner_prestep(sol)
             inner += 1
-            sol, stats = model.update_x(sol, inner)
-            sol = model.update_xbar(sol, Pd=Pd, Qd=Qd)
-            sol = model.update_z(sol, beta)
-            sol = model.update_l(sol, beta)
+            sol, stats = call("x", model.update_x, sol, inner)
+            sol = call("xbar", model.update_xbar, sol, Pd=Pd, Qd=Qd)
+            sol = call("z", model.update_z, sol, beta)
+            sol = call("l", model.update_l, sol, beta)
             sol, scalars = model.update_residual(sol, beta)
             if not float(scalars["primres"]) > eps_pri:
                 break
@@ -98,7 +127,7 @@ def admm_two_level(model, sol: Solution,
             info.status = "Solved"
             break
 
-        sol = model.update_lz(sol, beta)
+        sol = call("lz", model.update_lz, sol, beta)
         if info.norm_z_curr > par.theta * info.norm_z_prev:
             beta = min(par.inc_c * beta, _beta_cap(dtype))
 

@@ -8,6 +8,11 @@ fallback); ``device="cpu"``, asked for explicitly, runs their plain PyTorch
 versions. ``use_projection`` runs the power-flow projection
 (``models/pf/projection.py``, on the host) after the solve.
 ``solve_acopf_from_env`` re-runs a solve from its ``AdmmEnv``.
+
+``mesh`` (``parallel/sharding.py::make_mesh``, the same call on every rank
+of a ``torch.distributed`` run) splits the lines across the ranks;
+``pad_lines_to`` pads the line batch to a multiple and defaults to the mesh
+size. Every rank gets the whole solution and the same ``info`` back.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from ..algorithms.admm_two_level import admm_two_level
 from ..models.acopf import model as M
 from ..models.pf.projection import pf_projection
+from ..parallel.sharding import default_pad, run_sharded
 from ..utils.environment import AdmmEnv, IterationInformation, Parameters, Solution
 from ..utils.opfdata import OPFData, opf_loaddata
 
@@ -54,13 +60,17 @@ def solve_acopf(
     theta: float = 0.8,
     inc_c: float = 6.0,
     tron_step_cap: int | None = None,
+    pad_lines_to: int = 1,
+    mesh=None,
     device="cuda",
     data: OPFData | None = None,
 ) -> SolveResult:
     """Solve a single-period ACOPF with two-level ADMM.
 
     ``case`` is a MATPOWER file; pass ``data`` (an already loaded or
-    generated :class:`OPFData`) to skip the file.
+    generated :class:`OPFData`) to skip the file. Pass ``mesh`` to split
+    the lines across the ranks of a multi-process run; ``pad_lines_to``
+    then defaults to the mesh size.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -68,6 +78,7 @@ def solve_acopf(
                            "available")
     if data is None:
         data = opf_loaddata(case, case_format=case_format, verbose=verbose)
+    pad_lines_to = default_pad(pad_lines_to, mesh)
 
     par = Parameters(
         outer_iterlim=outer_iterlim,
@@ -83,9 +94,10 @@ def solve_acopf(
         tron_step_cap=tron_step_cap,
     )
     model = M.build_model(data, par, use_linelimit=use_linelimit,
-                          tight_factor=tight_factor, dtype=dtype, device=dev)
+                          tight_factor=tight_factor,
+                          pad_lines_to=pad_lines_to, dtype=dtype, device=dev)
     sol = M.init_solution(model, rho_pq, rho_va)
-    sol, info = admm_two_level(model, sol)
+    sol, info = run_sharded(admm_two_level, model, sol, mesh)
     if use_projection:
         sol, proj = pf_projection(data, model, sol, verbose=verbose)
         info.time_projection = proj["time"]

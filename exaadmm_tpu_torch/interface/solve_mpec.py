@@ -5,9 +5,10 @@ Counterpart of ``exaadmm_tpu/interface/solve_mpec.py`` (reference
 solve_acopf_mpec, solve_mpec.jl, disabled upstream): the same arguments and
 defaults, plus ``device`` (as in ``solve_acopf``: ``"cuda"`` by default,
 raising ``RuntimeError`` without a CUDA device; ``"cpu"`` runs the plain
-versions) and ``data`` (an already loaded or generated case). ``mesh`` and
-``pad_lines_to > 1`` need multi-GPU support and raise
-``NotImplementedError``.
+versions) and ``data`` (an already loaded or generated case). ``mesh``
+splits the lines across the ranks of a multi-process run and
+``pad_lines_to`` pads the line batch (it defaults to the mesh size), as in
+``solve_acopf``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ..algorithms.admm_two_level import admm_two_level
 from ..models.mpec import model as MM
+from ..parallel.sharding import default_pad, run_sharded
 from ..utils.environment import AdmmEnv, IterationInformation, Parameters
 from ..utils.grid_data import build_csr, build_grid_data
 from ..utils.opfdata import OPFData, opf_loaddata
@@ -68,10 +70,12 @@ def make_storage(data: OPFData, storage_ratio: float,
 def build_model(data: OPFData, par: Parameters, *, storage_ratio: float = 0.0,
                 storage_charge_max: float = 1.0, droop: float = 0.04,
                 use_linelimit: bool = True, tight_factor: float = 0.99,
-                dtype=torch.float64, device="cpu") -> MM.ModelMpec:
+                pad_lines_to: int = 1, dtype=torch.float64,
+                device="cpu") -> MM.ModelMpec:
     """The MPEC model of ``data``: the grid, the storage of
     ``make_storage`` and the primary-control data (opfdata.jl:860-901)."""
-    gd = build_grid_data(data, tight_factor=tight_factor, dtype=dtype,
+    gd = build_grid_data(data, tight_factor=tight_factor,
+                         pad_lines_to=pad_lines_to, dtype=dtype,
                          device=device)
 
     def t(a):
@@ -116,15 +120,13 @@ def solve_acopf_mpec(
     """Solve the MPEC of ``case`` (a MATPOWER file; pass ``data``, an
     already loaded or generated case, to skip the file) with two-level
     ADMM."""
-    if mesh is not None or pad_lines_to > 1:
-        raise NotImplementedError(
-            "a sharded MPEC solve needs multi-GPU support, not ported yet")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={device!r} asked for, but CUDA is not "
                            "available")
     if data is None:
         data = opf_loaddata(case, case_format=case_format, verbose=verbose)
+    pad_lines_to = default_pad(pad_lines_to, mesh)
 
     par = Parameters(outer_iterlim=outer_iterlim, inner_iterlim=inner_iterlim,
                      obj_scale=obj_scale, scale=scale, outer_eps=outer_eps,
@@ -132,13 +134,15 @@ def solve_acopf_mpec(
     model = build_model(data, par, storage_ratio=storage_ratio,
                         storage_charge_max=storage_charge_max, droop=droop,
                         use_linelimit=use_linelimit,
-                        tight_factor=tight_factor, dtype=dtype, device=dev)
-    sol, info = admm_two_level(model, MM.init_solution(model, rho_pq, rho_va))
+                        tight_factor=tight_factor, pad_lines_to=pad_lines_to,
+                        dtype=dtype, device=dev)
+    sol = MM.init_solution(model, rho_pq, rho_va)
+    sol, info = run_sharded(admm_two_level, model, sol, mesh)
 
     freq_change = float(sol.v.fg[0]) if model.grid.ngen > 0 else 0.0
     vm_dev = float(torch.amax(torch.abs(
         torch.sqrt(torch.clamp_min(sol.u.vg, 0.0)) - model.vm_setpoint)))
-    if verbose > 0:
+    if verbose > 0 and (mesh is None or mesh.rank == 0):
         print(f"Frequency change = {freq_change: 12.6e}")
         print(f"|VM-VM^sp|_infty = {vm_dev: 12.6e}")
     env = AdmmEnv(case=case, data=data, initial_rho_pq=rho_pq,

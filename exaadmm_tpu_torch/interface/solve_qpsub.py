@@ -9,9 +9,12 @@ and keywords, solved by one-level ADMM, plus ``device`` and ``data`` (as in
 
 ``use_projection=True`` projects the final state onto the power flow of
 the QP's residual loads, on the host (qpsub_admm_prepoststep_cpu.jl:16-19).
-Not ported yet, and raising ``NotImplementedError``: ``onelevel=False``
-(the JAX package and the reference do not implement it either), ``mesh``
-or ``pad_lines_to > 1`` (multi-GPU). ``branch_backend``, ``pallas_tile`` and
+``onelevel=False`` raises ``NotImplementedError`` (the JAX package and
+the reference do not implement it either). ``mesh`` splits the lines across
+the ranks of a multi-process run and ``pad_lines_to`` pads the line batch
+(it defaults to the mesh size), as in ``solve_acopf``; the SQP outputs are
+computed from the gathered solution on every rank.
+``branch_backend``, ``pallas_tile`` and
 ``bus_backend`` choose between TPU code paths in the JAX package; they are
 accepted and ignored: on a CUDA device the port always runs its kernels.
 """
@@ -25,6 +28,7 @@ import torch
 from ..algorithms.admm_one_level import admm_one_level
 from ..models.pf.projection import pf_projection
 from ..models.qpsub import model as Q
+from ..parallel.sharding import default_pad, run_sharded
 from ..utils.environment import IterationInformation, Parameters, SolutionQpsub
 from ..utils.opfdata import OPFData, opf_loaddata
 
@@ -74,15 +78,13 @@ def solve_qpsub(
     if not onelevel:
         raise NotImplementedError(
             "two-level ADMM is not implemented in QPsub (matches reference)")
-    if mesh is not None or pad_lines_to > 1:
-        raise NotImplementedError(
-            "a sharded qpsub solve needs multi-GPU support, not ported yet")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={device!r} asked for, but CUDA is not "
                            "available")
     if data is None:
         data = opf_loaddata(case, case_format=case_format, verbose=verbose)
+    pad_lines_to = default_pad(pad_lines_to, mesh)
 
     par = Parameters(
         outer_iterlim=outer_iterlim, inner_iterlim=inner_iterlim,
@@ -97,9 +99,10 @@ def solve_qpsub(
         c1=c1, c2=c2, Pd=Pd, Qd=Qd,
     )
     model = Q.build_model(data, par, qp_inputs, use_linelimit=use_linelimit,
-                          tight_factor=tight_factor, dtype=dtype, device=dev)
+                          tight_factor=tight_factor,
+                          pad_lines_to=pad_lines_to, dtype=dtype, device=dev)
     sol = Q.init_solution(model, rho_pq, rho_va)
-    sol, info = admm_one_level(model, sol)
+    sol, info = run_sharded(admm_one_level, model, sol, mesh)
     sqp_out = Q.poststep(model, sol)
     if use_projection:
         base, proj = pf_projection(data, model, sol.base, Pd=model.Pd,

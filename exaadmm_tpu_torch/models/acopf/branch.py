@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ...ops import tron_cuda
+from ...parallel.sharding import all_reduce_max, all_reduce_sum
 from ...utils.environment import BranchALMState, Parameters, Solution
 from ...utils.grid_data import GridData
 
@@ -415,10 +416,16 @@ def branch_update(sol: Solution, gd: GridData, par: Parameters,
     u_new = torch.where(active0[:, None], u_new, sol.u.line)
 
     m = gd.line_mask
+    sums = [torch.sum(res.alm_iters * m), torch.sum(res.minor_iters * m)]
+    max_cv = torch.amax(torch.where(active0, res.cviol,
+                                    torch.zeros_like(res.cviol)))
+    if gd.mesh is not None:
+        # lines split across ranks: one (2,) sum and one scalar maximum
+        sums = all_reduce_sum(torch.stack(sums), gd.mesh).unbind()
+        max_cv = all_reduce_max(max_cv, gd.mesh)
     stats = {
-        "avg_auglag_it": torch.sum(res.alm_iters * m) / gd.nline,
-        "avg_minor_it": torch.sum(res.minor_iters * m) / gd.nline,
-        "max_cviol": torch.amax(torch.where(active0, res.cviol,
-                                            torch.zeros_like(res.cviol))),
+        "avg_auglag_it": sums[0] / gd.nline,
+        "avg_minor_it": sums[1] / gd.nline,
+        "max_cviol": max_cv,
     }
     return u_new, new_alm, stats

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ...ops import bus_cuda
+from ...parallel.sharding import all_reduce_sum
 from ...utils.environment import Blocks, blocks_map
 from ...utils.grid_data import GridData
 
@@ -128,8 +129,11 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
     if Qd is None:
         Qd = gd.Qd
 
-    agg = _sum_into_buses(bus_arc_values(u, z, l, rho, gd), gd.arc_bus,
-                          gd.arc_ptr, gd.arc_idx)
+    # the lines may be split across ranks (``gd.mesh``): their arc sums are
+    # completed by one all-reduce; generators and buses are replicated
+    agg = all_reduce_sum(
+        _sum_into_buses(bus_arc_values(u, z, l, rho, gd), gd.arc_bus,
+                        gd.arc_ptr, gd.arc_idx), gd.mesh)
     uz = uL + zL
     common_wi = agg[..., 0]
     common_ti = agg[..., 1]
@@ -240,6 +244,10 @@ def residual_update(sol, gd: GridData, beta):
     over the full vector; the reference CPU code sums only the first entry
     (a loop over ``1:length(nvar)`` with an integer nvar). It is display-only,
     and the correct sum is kept here, as in the JAX version.
+
+    With the lines split across ranks (``gd.mesh``) the seven line partial
+    sums are stacked and completed by one all-reduce; the generator terms
+    are replicated and added after it.
     """
     m = gd.line_mask[:, None]
     rp = blocks_map(lambda uu, vv, zz: uu - vv + zz, sol.u, sol.v, sol.z)
@@ -252,22 +260,32 @@ def residual_update(sol, gd: GridData, beta):
     def gen_dot(a, b):
         return torch.sum(a * b)
 
-    z_sq = gen_dot(sol.z.gen, sol.z.gen) + line_dot(sol.z.line, sol.z.line)
-    primres = torch.sqrt(gen_dot(rp.gen, rp.gen) + line_dot(rp.line, rp.line))
-    dualres = torch.sqrt(gen_dot(rd.gen, rd.gen) + line_dot(rd.line, rd.line))
+    line_parts = [
+        line_dot(rp.line, rp.line),
+        line_dot(rd.line, rd.line),
+        line_dot(sol.z.line, sol.z.line),
+        line_dot(ax_by.line, ax_by.line),
+        line_dot(sol.lz.line, sol.z.line),
+        line_dot(sol.l.line, rp.line),
+        line_dot(sol.rho.line, rp.line * rp.line),
+    ]
+    if gd.mesh is not None:
+        line_parts = all_reduce_sum(torch.stack(line_parts), gd.mesh).unbind()
+
+    z_sq = gen_dot(sol.z.gen, sol.z.gen) + line_parts[2]
+    primres = torch.sqrt(gen_dot(rp.gen, rp.gen) + line_parts[0])
+    dualres = torch.sqrt(gen_dot(rd.gen, rd.gen) + line_parts[1])
     norm_z = torch.sqrt(z_sq)
-    mismatch = torch.sqrt(gen_dot(ax_by.gen, ax_by.gen)
-                          + line_dot(ax_by.line, ax_by.line))
+    mismatch = torch.sqrt(gen_dot(ax_by.gen, ax_by.gen) + line_parts[3])
 
     objval = compute_objval(sol.u.gen, gd.c2, gd.c1, gd.c0, gd.baseMVA)
 
     auglag = (
         objval
-        + (gen_dot(sol.lz.gen, sol.z.gen) + line_dot(sol.lz.line, sol.z.line))
+        + (gen_dot(sol.lz.gen, sol.z.gen) + line_parts[4])
         + 0.5 * beta * z_sq
-        + (gen_dot(sol.l.gen, rp.gen) + line_dot(sol.l.line, rp.line))
-        + 0.5 * (gen_dot(sol.rho.gen, rp.gen * rp.gen)
-                 + line_dot(sol.rho.line, rp.line * rp.line))
+        + (gen_dot(sol.l.gen, rp.gen) + line_parts[5])
+        + 0.5 * (gen_dot(sol.rho.gen, rp.gen * rp.gen) + line_parts[6])
     )
 
     scalars = {

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ...ops import tron_cuda
+from ...parallel.sharding import all_reduce_sum
 from ...utils.environment import (SOLUTION_BLOCKS, Blocks, BranchALMState,
                                   Parameters, RampState, Solution,
                                   SolutionMpacopf)
@@ -202,9 +203,12 @@ class ModelMpacopf:
                       line=ac.z.line - ac.z_prev.line)
         ax_by = Blocks(gen=rp_b.gen - ac.z.gen, line=rp_b.line - ac.z.line)
 
-        def per_period_sq(b: Blocks):
-            return (torch.sum(b.gen * b.gen, dim=(1, 2))
-                    + torch.sum(b.line * b.line * m, dim=(1, 2)))
+        line_sq = [torch.sum(b.line * b.line * m, dim=(1, 2))
+                   for b in (rp_b, rd_b, ac.z, ax_by)]
+        if gd.mesh is not None:
+            # lines split across ranks: the (4, T) line sums in one
+            # all-reduce, the replicated generator sums added after it
+            line_sq = all_reduce_sum(torch.stack(line_sq), gd.mesh).unbind()
 
         mask = self.ramp_mask
         rp_r = (rp.u - self._v_pg_prev(ac) + rp.z) * mask
@@ -213,15 +217,17 @@ class ModelMpacopf:
 
         # per-period 2-norms, the ramp coupling folded into the later
         # period, and the maximum over periods
-        def norm(b: Blocks, r):
-            return torch.amax(torch.sqrt(per_period_sq(b)
+        def norm(i: int, b: Blocks, r):
+            per_period_sq = torch.sum(b.gen * b.gen, dim=(1, 2)) + line_sq[i]
+            return torch.amax(torch.sqrt(per_period_sq
                                          + torch.sum(r * r, dim=1)))
 
         pg = gd.baseMVA * ac.u.gen[..., 0]
         objval = torch.sum(gd.c2 * (pg * pg) + gd.c1 * pg + gd.c0)
         scalars = {
-            "primres": norm(rp_b, rp_r), "dualres": norm(rd_b, rd_r),
-            "norm_z_curr": norm(ac.z, z_r), "mismatch": norm(ax_by, rp_r - z_r),
+            "primres": norm(0, rp_b, rp_r), "dualres": norm(1, rd_b, rd_r),
+            "norm_z_curr": norm(2, ac.z, z_r),
+            "mismatch": norm(3, ax_by, rp_r - z_r),
             "objval": objval, "auglag": objval,
         }
         return sol.replace(acopf=ac.replace(rp=rp_b, rd=rd_b)), scalars
@@ -230,12 +236,15 @@ class ModelMpacopf:
 def build_model(data: OPFData, par: Parameters, pd_mat, qd_mat, *,
                 start_period: int = 1, end_period: int = 1,
                 use_linelimit: bool = True, tight_factor: float = 1.0,
-                ramp_ratio: float = 0.02, dtype=torch.float64,
-                device="cpu") -> ModelMpacopf:
+                ramp_ratio: float = 0.02, pad_lines_to: int = 1,
+                dtype=torch.float64, device="cpu") -> ModelMpacopf:
     """``pd_mat``/``qd_mat``: (nbus, periods) loads in MW/MVAr; the model
-    takes the columns start_period..end_period (1-based)."""
+    takes the columns start_period..end_period (1-based). ``pad_lines_to``
+    pads every period's line batch to a multiple (the mesh size of a run
+    split across ranks)."""
     gd = build_grid_data(data, tight_factor=tight_factor,
-                         ramp_ratio=ramp_ratio, dtype=dtype, device=device)
+                         ramp_ratio=ramp_ratio, pad_lines_to=pad_lines_to,
+                         dtype=dtype, device=device)
     T = end_period - start_period + 1
 
     def loads(mat):

@@ -30,10 +30,12 @@ JAX model's.
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 
 from ...ops import bus_cuda
+from ...parallel.sharding import all_reduce_sum
 from ...utils.environment import (BranchALMState, Blocks, Parameters,
                                   Solution, _TensorRecord)
 from ...utils.grid_data import GridData
@@ -48,6 +50,8 @@ MPEC_FIELDS = ("gen", "vg", "fg", "sto", "line")
 class MpecBlocks(_TensorRecord):
     """One ADMM vector for the MPEC layout:
     [(pg, qg)_g | vg_g | fg_g | ps_s | (8 flow/voltage)_l]."""
+
+    LINE_LEAVES: ClassVar[tuple] = ("line",)
 
     gen: torch.Tensor   # (ngen, 2)
     vg: torch.Tensor    # (ngen,) squared voltage magnitude copy
@@ -283,8 +287,11 @@ class ModelMpec:
             Qd = gd.Qd
 
         # the eight line aggregates, one scatter over the arcs
-        agg = bus_cuda.bus_scatter(bus_arc_values(u, z, l, rho, gd),
-                                   gd.arc_bus, gd.arc_ptr, gd.arc_idx)
+        # (lines split across ranks, ``gd.mesh``: completed by one
+        # all-reduce; generator, vg, fg and storage data are replicated)
+        agg = all_reduce_sum(
+            bus_cuda.bus_scatter(bus_arc_values(u, z, l, rho, gd),
+                                 gd.arc_bus, gd.arc_ptr, gd.arc_idx), gd.mesh)
         (common_wi, common_ti, rhosum_wi, rhosum_ti, inv_rho_p, inv_rho_q,
          rhs1_lines, rhs2_lines) = agg.unbind(-1)
 
@@ -370,20 +377,26 @@ class ModelMpec:
         rd = mpec_map(lambda zc, zpp: zc - zpp, sol.z, sol.z_prev)
         ax_by = mpec_map(lambda a, b: a - b, rp, sol.z)
 
-        def sumsq(blk: MpecBlocks):
+        line_sq = [torch.sum(_sq(blk.line) * m)
+                   for blk in (rp, rd, sol.z, ax_by)]
+        if gd.mesh is not None:
+            # lines split across ranks: the four line sums in one all-reduce
+            line_sq = all_reduce_sum(torch.stack(line_sq), gd.mesh).unbind()
+
+        def sumsq(i: int, blk: MpecBlocks):
             """The replicated blocks' squares plus the masked line sum
             (the JAX model's order)."""
             rep = (torch.sum(_sq(blk.gen)) + torch.sum(_sq(blk.vg))
                    + torch.sum(_sq(blk.fg)) + torch.sum(_sq(blk.sto)))
-            return rep + torch.sum(_sq(blk.line) * m)
+            return rep + line_sq[i]
 
         pg = gd.baseMVA * sol.u.gen[:, 0]
         objval = torch.sum(gd.c2 * _sq(pg) + gd.c1 * pg + gd.c0)
         scalars = {
-            "primres": torch.sqrt(sumsq(rp)),
-            "dualres": torch.sqrt(sumsq(rd)),
-            "norm_z_curr": torch.sqrt(sumsq(sol.z)),
-            "mismatch": torch.sqrt(sumsq(ax_by)),
+            "primres": torch.sqrt(sumsq(0, rp)),
+            "dualres": torch.sqrt(sumsq(1, rd)),
+            "norm_z_curr": torch.sqrt(sumsq(2, sol.z)),
+            "mismatch": torch.sqrt(sumsq(3, ax_by)),
             "objval": objval,
             "auglag": objval,
         }

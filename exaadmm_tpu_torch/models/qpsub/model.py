@@ -36,9 +36,10 @@ import numpy as np
 import torch
 
 from ...ops import tron_cuda
+from ...parallel.sharding import all_reduce_sum
 from ...ops.tron import _dot, _hmatvec, _rowsum
 from ...utils.environment import (Blocks, Parameters, Solution, SolutionQpsub,
-                                  blocks_map, blocks_norm)
+                                  blocks_map)
 from ...utils.grid_data import GridData, build_grid_data
 from ..acopf import kernels
 
@@ -65,6 +66,12 @@ class ModelQpsub:
     (nline_padded, 4, 8), ``vec_1j``/``vec_1k`` (nline_padded, 8) are
     computed here in numpy fp64, then cast.
     """
+
+    #: the per-line arrays, which a run split across ranks cuts to the
+    #: rank's window (``parallel/sharding.py::local_model``)
+    LINE_FIELDS = ("Hs", "LH_1h", "RH_1h", "LH_1i", "RH_1i", "LH_1j", "RH_1j",
+                   "LH_1k", "RH_1k", "ls", "us", "line_res", "C", "dvec",
+                   "supY8", "vec_1j", "vec_1k")
 
     def __init__(self, grid: GridData, par: Parameters, qp: dict,
                  use_linelimit: bool = True):
@@ -148,7 +155,12 @@ class ModelQpsub:
 
     # ---- hooks called by the one-level driver ----
     def rho_norm(self, sol: SolutionQpsub) -> float:
-        return float(blocks_norm(sol.base.rho, self.grid.line_mask))
+        # once per solve, before the loop: the line part summed over ranks
+        gd = self.grid
+        rho = sol.base.rho
+        line_sq = all_reduce_sum(
+            torch.sum(rho.line * rho.line * gd.line_mask[:, None]), gd.mesh)
+        return float(torch.sqrt(torch.sum(rho.gen * rho.gen) + line_sq))
 
     def one_level_reset(self, sol: SolutionQpsub) -> SolutionQpsub:
         b = sol.base
@@ -193,9 +205,12 @@ class ModelQpsub:
             alm_lam_j=res.lam[0], alm_lam_k=res.lam[1], alm_mu=res.mu,
         )
         m = gd.line_mask
+        sums = [torch.sum(res.alm_iters * m), torch.sum(res.minor_iters * m)]
+        if gd.mesh is not None:
+            sums = all_reduce_sum(torch.stack(sums), gd.mesh).unbind()
         stats = {
-            "avg_auglag_it": torch.sum(res.alm_iters * m) / gd.nline,
-            "avg_minor_it": torch.sum(res.minor_iters * m) / gd.nline,
+            "avg_auglag_it": sums[0] / gd.nline,
+            "avg_minor_it": sums[1] / gd.nline,
         }
         return new, stats
 
@@ -231,6 +246,8 @@ class ModelQpsub:
             torch.sum(b.l.line * rp.line * m)
             + 0.5 * torch.sum(b.rho.line * rp.line**2 * m),
         ])
+        # lines split across ranks: the line partial sums in one all-reduce
+        line_parts = all_reduce_sum(line_parts, gd.mesh)
         primres = torch.sqrt(torch.sum(rp.gen**2) + line_parts[0])
         dualres = torch.sqrt(torch.sum(rd.gen**2) + line_parts[1])
 

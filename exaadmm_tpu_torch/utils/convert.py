@@ -32,7 +32,9 @@ from ..models.mpec.model import MPEC_FIELDS, MpecBlocks, SolutionMpec
 
 _SIZES = ("nbus", "ngen", "nline", "nline_padded")
 _INDEX_FIELDS = ("gen_bus", "line_from", "line_to")
-_DERIVED = ("arc_ptr", "arc_idx", "arc_bus", "gen_ptr", "gen_idx")
+# the port's own fields: the bus adjacency, and the mesh of a rank's local
+# grid (None on a whole grid)
+_DERIVED = ("arc_ptr", "arc_idx", "arc_bus", "gen_ptr", "gen_idx", "mesh")
 
 
 def grid_data_from_numpy(d: dict, *, dtype=torch.float64,

@@ -23,6 +23,7 @@ The MPEC state (``SolutionMpec``) lives in ``models/mpec/model.py``.
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 
@@ -32,7 +33,15 @@ PIJ, QIJ, PJI, QJI, WI, WJ, THI, THJ = range(8)
 
 class _TensorRecord:
     """``replace`` and ``to`` for a dataclass whose fields are tensors or
-    records of tensors."""
+    records of tensors.
+
+    ``LINE_LEAVES`` names the record's own tensor fields that are indexed by
+    line, the ones ``parallel/sharding.py`` splits across ranks; their line
+    axis is ``LINE_AXIS`` of the outermost record (1 where a period axis
+    leads)."""
+
+    LINE_LEAVES: ClassVar[tuple] = ()
+    LINE_AXIS: ClassVar[int] = 0
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
@@ -72,6 +81,10 @@ class Parameters:
     # max_minor * max_auglag (the reference's own caps)
     tron_step_cap: int | None = None
 
+    # fill IterationInformation's time_*_update fields: the two-level loop
+    # then synchronizes after every hook, which slows it (it is host-bound)
+    time_hooks: bool = False
+
     # branch ALM termination (auglag kernel :128-137)
     alm_ctol: float = 1e-6
 
@@ -98,6 +111,8 @@ class AdmmEnv:
 @dataclasses.dataclass
 class Blocks(_TensorRecord):
     """One ADMM-space vector, split by component class."""
+
+    LINE_LEAVES: ClassVar[tuple] = ("line",)
 
     gen: torch.Tensor   # (ngen, 2)  [pg, qg]
     line: torch.Tensor  # (nline_padded, 8)  [pij,qij,pji,qji,wi,wj,thi,thj]
@@ -137,6 +152,8 @@ class BranchALMState(_TensorRecord):
     at the first inner iteration of each outer loop, the lambdas warm-start
     across all iterations.
     """
+
+    LINE_LEAVES: ClassVar[tuple] = ("lam1", "lam2", "mu")
 
     lam1: torch.Tensor  # (nline,)
     lam2: torch.Tensor  # (nline,)
@@ -220,6 +237,8 @@ RAMP_FIELDS = tuple(f.name for f in dataclasses.fields(RampState))
 class SolutionMpacopf(_TensorRecord):
     """Multi-period ADMM state: ``acopf`` holds (T, ...) tensors."""
 
+    LINE_AXIS: ClassVar[int] = 1
+
     acopf: Solution
     ramp: RampState
 
@@ -232,6 +251,9 @@ class SolutionMpacopf(_TensorRecord):
 @dataclasses.dataclass
 class SolutionQpsub(_TensorRecord):
     """QP-subproblem state (one-level ADMM); ``base.z`` stays zero."""
+
+    LINE_LEAVES: ClassVar[tuple] = ("sqp_line", "alm_lam_j", "alm_lam_k",
+                                    "alm_mu")
 
     base: Solution
     sqp_line: torch.Tensor   # (nline_padded, 6) line deltas, Hs ordering
@@ -268,6 +290,13 @@ class IterationInformation:
     # worst branch line-limit constraint violation of the last inner iteration
     max_cviol: float = 0.0
     time_overall: float = 0.0
+    # seconds spent in each hook of the two-level ADMM loop, summed over the
+    # solve; filled only with ``Parameters.time_hooks``
+    time_x_update: float = 0.0
+    time_xbar_update: float = 0.0
+    time_z_update: float = 0.0
+    time_l_update: float = 0.0
+    time_lz_update: float = 0.0
     # the power-flow projection (``use_projection``): its wall time and the
     # power-flow mismatch it reached (None when it did not run)
     time_projection: float = 0.0

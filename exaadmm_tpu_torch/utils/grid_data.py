@@ -79,6 +79,12 @@ class GridData:
     gen_ptr: torch.Tensor
     gen_idx: torch.Tensor
 
+    # set on a rank's local grid (``parallel/sharding.py::local_grid``): the
+    # line arrays then hold this rank's window of ``nline_padded`` lines,
+    # ``nline`` stays the whole grid's real line count, and every sum over
+    # lines is completed by one all-reduce over the mesh
+    mesh: object = None
+
     def to(self, device) -> "GridData":
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)

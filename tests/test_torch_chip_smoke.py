@@ -23,11 +23,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_rehearsal_on_cpu(case9_path, capsys):
     data = opf_loaddata(case9_path, verbose=0)
     loads = load_time_series(chip_smoke.DEMAND9)
-    res = chip_smoke.run("cpu", data, data, loads, 3)
+    res = chip_smoke.run("cpu", data, data, loads, 3, case118_outer=2)
     out = capsys.readouterr().out
     for phase in ("1", "1b", "1c", "2", "2b", "2c", "2d", "3", "3b", "3c",
-                  "3d", "3e", "3f", "4", "5", "6", "7", "8"):
+                  "3d", "3e", "3f", "3g", "3h", "4", "5", "6", "7", "8",
+                  "9a", "9b"):
         assert f"phase {phase}:" in out
+    # case118 at a cut depth, the checkpoint, and the mesh paths: one rank
+    # (gloo here) bit-equal to phase 4, two ranks on the same counts
+    assert res["case118"]["outer"] == 2
+    assert res["checkpoint"]["leaves"] == 21
+    assert 5296.0 <= res["checkpoint"]["obj"] <= 5304.5
+    assert "over a mesh of 1 rank (gloo)" in out
+    assert res["main_mesh1"]["obj"] == res["main"]["obj"]
+    assert res["main_mesh1"]["per_it"] == 4.0
+    assert res["main_mesh1"]["bytes_per_it"] == 8 * (9 * 8 + 7 + 2 + 1)
+    assert res["main_2ranks"]["cumul"] == res["main"]["cumul"]
+    assert res["main_2ranks"]["case9"]["cumul"] == 315
     assert "gens (3, 6), storage (1, 2)" in out   # the MPEC bus sums
     assert "phase 2: tron_alm_branch x 3 periods" in out
     assert "phase 2c: tron_alm_qpsub without line limits" in out

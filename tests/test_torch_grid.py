@@ -33,7 +33,7 @@ from .test_torch_threads import one_torch_thread  # noqa: F401
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "data")
 CASES = ["case9", "case118", "case9_pglib", "synth300"]
-_DERIVED = {"arc_ptr", "arc_idx", "arc_bus", "gen_ptr", "gen_idx"}
+_DERIVED = {"arc_ptr", "arc_idx", "arc_bus", "gen_ptr", "gen_idx", "mesh"}
 
 
 def _load(case):

@@ -188,12 +188,6 @@ def test_complementarity_structure(plain_result):
     np.testing.assert_allclose(fg, vfg, atol=5e-3)
 
 
-def test_unported_options_raise(case9_path):
-    for kw in (dict(mesh=object()), dict(pad_lines_to=8)):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            E.solve_acopf_mpec(case9_path, verbose=0, device="cpu", **kw)
-
-
 def test_cuda_device_without_cuda_raises(case9_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

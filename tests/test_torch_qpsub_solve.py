@@ -72,8 +72,6 @@ def test_poststep_matches_jax(pin_result):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(onelevel=False), "two-level"),
-    (dict(mesh=object()), "multi-GPU"),
-    (dict(pad_lines_to=8), "multi-GPU"),
 ])
 def test_unported_options_raise(case9_path, kw, match):
     with pytest.raises(NotImplementedError, match=match):

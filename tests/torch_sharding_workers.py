@@ -1,0 +1,102 @@
+"""What one rank runs in tests/test_torch_sharding.py.
+
+``spawn_ranks`` starts the ranks as new processes, which find their function
+by module name; this module imports only torch and the port, so a rank
+starts without jax or pytest. Every function takes (mesh, device, ...) and
+returns plain numbers and numpy arrays (rank 0's go back to the test)."""
+
+import os
+
+import numpy as np
+import torch
+
+import exaadmm_tpu_torch as E
+from exaadmm_tpu_torch.algorithms.admm_two_level import admm_two_level
+from exaadmm_tpu_torch.models.acopf import model as M
+from exaadmm_tpu_torch.models.mpacopf import model as MP
+from exaadmm_tpu_torch.parallel import sharding
+from exaadmm_tpu_torch.utils.checkpoint import (load_solution_sharded,
+                                                save_solution_sharded,
+                                                _leaves)
+from exaadmm_tpu_torch.utils.environment import Parameters
+from exaadmm_tpu_torch.utils.opfdata import load_time_series, opf_loaddata
+
+
+def _info(info):
+    return dict(status=info.status, outer=info.outer, cumul=info.cumul,
+                objval=info.objval, primres=info.primres,
+                max_cviol=info.max_cviol)
+
+
+def acopf(mesh, dev, case, kw):
+    res = E.solve_acopf(case, mesh=mesh, device=dev, **kw)
+    return dict(_info(res.info), gen=res.solution.u.gen.numpy(),
+                line=res.solution.u.line.numpy(), beta=res.model.par.beta,
+                nline_padded=res.model.grid.nline_padded)
+
+
+def mpacopf(mesh, dev, case, kw):
+    """Multi-period, sharded through the model and the ADMM loop (there is no
+    ``mesh`` on ``solve_mpacopf``, as in the JAX package)."""
+    data = opf_loaddata(case, verbose=0)
+    prefix = os.path.join(os.path.dirname(case), "case9_demand")
+    pd_mat, qd_mat = load_time_series(prefix)
+    par = Parameters(verbose=0, **kw)
+    model = MP.build_model(data, par, pd_mat, qd_mat, start_period=1,
+                           end_period=3, pad_lines_to=mesh.size, device=dev)
+    sol = MP.init_solution(model, 4e2, 4e4)
+    sol, info = sharding.run_sharded(admm_two_level, model, sol, mesh)
+    return dict(_info(info), gen=sol.acopf.u.gen.numpy(),
+                line_shape=tuple(sol.acopf.u.line.shape))
+
+
+def qpsub(mesh, dev, case, qp_args, kw):
+    res = E.solve_qpsub(case, *qp_args, mesh=mesh, device=dev, **kw)
+    return dict(_info(res.info), gen=res.solution.base.u.gen.numpy(),
+                sqp_line=res.solution.sqp_line.numpy(),
+                dual_infeas=res.sqp_out["dual_infeas"])
+
+
+def mpec(mesh, dev, case, kw):
+    res = E.solve_acopf_mpec(case, mesh=mesh, device=dev, **kw)
+    return dict(_info(res.info), gen=res.solution.u.gen.numpy(),
+                sto=res.solution.u.sto.numpy(), freq_change=res.freq_change,
+                line_shape=tuple(res.solution.u.line.shape))
+
+
+def collectives(mesh, dev, case, inner):
+    """The collectives of ``inner`` inner iterations of the two-level loop
+    on this rank's local model, with nothing gathered."""
+    data = opf_loaddata(case, verbose=0)
+    par = Parameters(verbose=0, outer_iterlim=1, inner_iterlim=inner)
+    model = M.build_model(data, par, pad_lines_to=mesh.size, device=dev)
+    sol = sharding.local_solution(M.init_solution(model, 4e2, 4e4), mesh)
+    local = sharding.local_model(model, mesh)
+    sharding.reset_counts()
+    sharding.log = []
+    _, info = admm_two_level(local, sol)
+    log, sharding.log = sharding.log, None
+    return dict(cumul=info.cumul, log=log, counts=dict(sharding.counts),
+                nbus=data.nbus)
+
+
+def sharded_checkpoint(mesh, dev, case, path):
+    """Two outer iterations on the local model, then the local state saved
+    and loaded per rank; returns whether every leaf came back bit-equal and
+    the gathered u.line beside the local shapes."""
+    data = opf_loaddata(case, verbose=0)
+    par = Parameters(verbose=0, outer_iterlim=2)
+    model = M.build_model(data, par, pad_lines_to=mesh.size, device=dev)
+    template = sharding.local_solution(M.init_solution(model, 4e2, 4e4), mesh)
+    sol, info = admm_two_level(sharding.local_model(model, mesh), template)
+    save_solution_sharded(path, sol, mesh, meta={"outer": info.outer,
+                                                 "beta": par.beta})
+    back, meta = load_solution_sharded(path, template, mesh)
+    same = all(torch.equal(a, b) for (_, a), (_, b)
+               in zip(_leaves(sol), _leaves(back)))
+    same = bool(sharding.all_reduce_sum(
+        torch.tensor(0.0 if same else 1.0), mesh) == 0.0)
+    full = sharding.gather_solution(back, mesh)
+    return dict(same=same, meta=meta, files=sorted(os.listdir(path)),
+                local_lines=sol.u.line.shape[0],
+                line=full.u.line.numpy(), cumul=info.cumul)
