@@ -126,12 +126,35 @@ per source, all at once) and runs, in order:
    cumul within 2 % of phase 4's, the inner it/s beside it (two host loops
    share one card: a correctness phase, not a speed claim). A rank that
    hangs fails the phase: every collective and the join have a time limit.
-   NCCL between cards is not run here: the machine has one card.
+   NCCL between cards is not run here: the machine has one card;
+10a. mixed precision (an fp64 solve with the branch batch in fp32): phase
+   2's fp64 batch cast down as the mixed path casts it, the f32 branch
+   kernel against its f32 plain version with phase 2's fp32 thresholds,
+   its device time beside the f64 kernel's on the same batch and its f32
+   bound; ``solve_acopf(mixed_precision=True)`` at phase 4's configuration:
+   phase 4's outer count, the objective within 1e-3 relative of phase 4's,
+   the state fp64, every branch launch the f32 instance; case9 with and
+   without line limits to Solved at outer_eps 2e-4, within 1e-3 of the
+   fp64 objectives 5286.652017310178 and 5286.651807890947 (at 2e-5 which
+   side of the tolerance a mixed case9 solve lands on is fp32 rounding:
+   ROADMAP's Queue 3, tests/torch_mixed_trace.py);
+10b. line sorting: phase 4's configuration with ``Parameters(sort_lines=
+   True)`` through the model and the driver: phase 4's outer count, cumul
+   within 2 %, the objective within 1e-6 relative, the rows back in
+   canonical order (every line copy of a bus's w equal); the scatter
+   over the CSR derived for every sorted round's order, against its plain
+   version and the canonical order's sums (1e-13 relative); the branch
+   kernel's device time at steady state (the batch after the sorted
+   solve) in canonical order and sorted by its lanes' steps; then the same
+   sort on phase 2's 15,710-lane batch and on the 39,016-lane multi-period
+   batch at it1, the sorted run bit-identical to the unsorted one and to
+   the plain version.
 
 The kernels' launch counters are zeroed just before phases 4, 5, 6, 7, 8,
-9a and 9b's full-size run (there on rank 0, which reports them) and read
-just after each; the ``launches`` of a kernel in the JSON line are the sum
-over those seven runs.
+9a and 9b's full-size run (there on rank 0, which reports them), 10a's
+mixed solve and 10b's sorted solve at phase 4's configuration, and read just
+after each; the ``launches`` of a kernel in the JSON line are the sum over
+those nine runs.
 
 ``--profile`` adds a breakdown of one iteration of the configurations of
 phases 4 to 8 (host time per hook, device time by kernel, idle share) and
@@ -173,6 +196,11 @@ MPEC_PINS = {"without storage": (23, 1401, 5329.132434858213),
              "with storage": (12, 1073, 4936.875393666981)}
 ROLLING_PINS = ((20, 973, 5286.652017310178), (9, 166, 5403.734908384519),
                 (7, 91, 5355.780080975317))
+# the fp64 pins of case9 at outer_eps 2e-4, rho (4e2, 4e4), of the JAX
+# package on the CPU: with line limits (ROLLING_PINS' first period is the
+# same solve) and without; phase 10a holds the mixed solves to 1e-3 of them
+MIXED9_PINS = {"with line limits": ROLLING_PINS[0][2],
+               "without line limits": 5286.651807890947}
 # the MPEC storage of phase 7 and --profile
 MPEC_STORAGE = dict(storage_ratio=0.1, storage_charge_max=0.1, droop=0.04)
 MP_PIN_OUTER, MP_PIN_CUMUL, MP_PIN_OBJ = 20, 1007, 16015.6958770167
@@ -219,19 +247,17 @@ def _check(cond: bool, what: str):
 def _zero_launches():
     """Set every kernel's launch count to 0."""
     from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
-    tron_cuda.launches = tron_cuda.ramp_launches = 0
-    tron_cuda.qpsub_launches = tron_cuda.polar_launches = 0
+    tron_cuda.launches.clear()
     bus_cuda.launches = 0
 
 
 def _launches() -> dict:
     """Every kernel's launch count, by kernel name."""
     from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
-    return {"tron_alm_branch": tron_cuda.launches,
-            "tron_alm_ramp": tron_cuda.ramp_launches,
-            "tron_alm_qpsub": tron_cuda.qpsub_launches,
-            "tron_alm_polar": tron_cuda.polar_launches,
-            "bus_scatter": bus_cuda.launches}
+    n = {inst.name: tron_cuda.instance_launches(inst)
+         for inst in (tron_cuda.BRANCH, tron_cuda.RAMP, tron_cuda.QPSUB,
+                      tron_cuda.POLAR)}
+    return dict(n, bus_scatter=bus_cuda.launches)
 
 
 def phase0_device(dev, on_card: bool) -> dict:
@@ -414,23 +440,42 @@ def _tron_vs_plain(label: str, name: str, kernel, plain, act, dtype,
                 bound_by=bound_by)
 
 
+def _it1_state(dev, data, dtype, par, pad: int = RANKS,
+               use_linelimit: bool = True):
+    """Phase 2's setup: the model of ``data`` (lines padded to a multiple
+    of ``pad``) and its flat start at rho (4e2, 4e4) with the line prox
+    targets perturbed by N(0, 0.05) from numpy seed 0, so the lanes spread
+    in difficulty; phase 2d's without line limits."""
+    from exaadmm_tpu_torch.models.acopf import model as M
+    model = M.build_model(data, par, use_linelimit=use_linelimit,
+                          pad_lines_to=pad, dtype=dtype, device=dev)
+    sol = M.init_solution(model, 4e2, 4e4)
+    rng = np.random.default_rng(0)
+    noise = torch.as_tensor(rng.normal(0, 0.05, tuple(sol.v.line.shape)))
+    return model, sol.replace(v=sol.v.replace(
+        line=sol.v.line + noise.to(device=dev, dtype=dtype)))
+
+
+def _take_lanes(batch, order):
+    """A TRON batch (x0, xl, xu, params, lam0, mu0, active0) with its lanes
+    (the last axis of every tensor) reordered by ``order``."""
+    def take(a):
+        return a.index_select(a.dim() - 1, order).contiguous()
+    x0, xl, xu, params, lam0, mu0, act = batch
+    return (take(x0), take(xl), take(xu),
+            {k: take(v) for k, v in params.items()}, take(lam0), take(mu0),
+            take(act))
+
+
 def phase2_tron(dev, data, on_card: bool) -> dict:
     from exaadmm_tpu_torch.models.acopf import branch
-    from exaadmm_tpu_torch.models.acopf import model as M
     from exaadmm_tpu_torch.ops import tron_cuda
     from exaadmm_tpu_torch.utils.environment import Parameters
 
     out = {}
     for dtype in (torch.float64, torch.float32):
         par = Parameters(verbose=0, tron_step_cap=50)
-        model = M.build_model(data, par, pad_lines_to=RANKS, dtype=dtype,
-                              device=dev)
-        sol = M.init_solution(model, 4e2, 4e4)
-        # perturb the prox targets so the lanes spread in difficulty
-        rng = np.random.default_rng(0)
-        noise = torch.as_tensor(rng.normal(0, 0.05, tuple(sol.v.line.shape)))
-        sol = sol.replace(v=sol.v.replace(
-            line=sol.v.line + noise.to(device=dev, dtype=dtype)))
+        model, sol = _it1_state(dev, data, dtype, par)
         opts = branch.branch_tolerances(par, dtype)
         key = "f64" if dtype == torch.float64 else "f32"
 
@@ -461,20 +506,14 @@ def phase2d_polar(dev, data, on_card: bool) -> dict:
     """Phase 2's check on the polar batch (no line limits) of the same
     grid: 4 variables a line, no constraints."""
     from exaadmm_tpu_torch.models.acopf import branch
-    from exaadmm_tpu_torch.models.acopf import model as M
     from exaadmm_tpu_torch.ops import tron_cuda
     from exaadmm_tpu_torch.utils.environment import Parameters
 
     out = {}
     for dtype in (torch.float64, torch.float32):
         par = Parameters(verbose=0, tron_step_cap=50)
-        model = M.build_model(data, par, use_linelimit=False, dtype=dtype,
-                              device=dev)
-        sol = M.init_solution(model, 4e2, 4e4)
-        rng = np.random.default_rng(0)
-        noise = torch.as_tensor(rng.normal(0, 0.05, tuple(sol.v.line.shape)))
-        sol = sol.replace(v=sol.v.replace(
-            line=sol.v.line + noise.to(device=dev, dtype=dtype)))
+        model, sol = _it1_state(dev, data, dtype, par, pad=1,
+                                use_linelimit=False)
         x0, xl, xu, params, lam0, mu0, act = branch.polar_inputs(
             sol, model.grid, par)
         opts = branch.polar_tolerances(par, dtype)
@@ -500,26 +539,33 @@ def _mp_model(dev, data, loads, T: int, dtype, par):
                           device=dev)
 
 
-def phase2_branch_periods(dev, data, loads, T: int, on_card: bool) -> dict:
-    """Phase 2's check on the multi-period path's branch batch: the
-    T * nline lines over the tiled grid, as ``update_x`` builds it."""
+def _periods_batch(dev, data, loads, T: int, dtype, par):
+    """The multi-period path's branch batch at the first inner iteration:
+    the T * nline lines over the tiled grid, as ``update_x`` builds it,
+    with the prox targets perturbed by N(0, 0.05) from numpy seed 0 so the
+    lanes (and periods) differ."""
     from exaadmm_tpu_torch.models.acopf import branch
     from exaadmm_tpu_torch.models.mpacopf import model as MP
+    model = _mp_model(dev, data, loads, T, dtype, par)
+    ac = MP.init_solution(model, 4e2, 4e4).acopf
+    rng = np.random.default_rng(0)
+    noise = torch.as_tensor(rng.normal(0, 0.05, tuple(ac.v.line.shape)))
+    ac = ac.replace(v=ac.v.replace(
+        line=ac.v.line + noise.to(device=dev, dtype=dtype)))
+    return branch.branch_inputs(model.flat_lines(ac), model.grid_T, par, 1)
+
+
+def phase2_branch_periods(dev, data, loads, T: int, on_card: bool) -> dict:
+    """Phase 2's check on the multi-period path's branch batch."""
+    from exaadmm_tpu_torch.models.acopf import branch
     from exaadmm_tpu_torch.ops import tron_cuda
     from exaadmm_tpu_torch.utils.environment import Parameters
 
     out = {}
     for dtype in (torch.float64, torch.float32):
         par = Parameters(verbose=0, tron_step_cap=50)
-        model = _mp_model(dev, data, loads, T, dtype, par)
-        ac = MP.init_solution(model, 4e2, 4e4).acopf
-        # perturb the prox targets so the lanes (and periods) differ
-        rng = np.random.default_rng(0)
-        noise = torch.as_tensor(rng.normal(0, 0.05, tuple(ac.v.line.shape)))
-        ac = ac.replace(v=ac.v.replace(
-            line=ac.v.line + noise.to(device=dev, dtype=dtype)))
-        x0, xl, xu, params, lam0, mu0, act = branch.branch_inputs(
-            model.flat_lines(ac), model.grid_T, par, 1)
+        x0, xl, xu, params, lam0, mu0, act = _periods_batch(
+            dev, data, loads, T, dtype, par)
         opts = branch.branch_tolerances(par, dtype)
 
         def kernel():
@@ -747,20 +793,21 @@ def phase2c_qpsub(dev, data, on_card: bool) -> dict:
 
 def phase3_case9(dev, on_card: bool) -> dict:
     import exaadmm_tpu_torch as E
-    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
     _zero_launches()
     t0 = time.perf_counter()
     res = E.solve_acopf(CASE9, rho_pq=4e2, rho_va=4e4, outer_eps=2e-5,
                         outer_iterlim=25, verbose=0, device=dev)
     _sync(dev)
+    launched = _launches()
     secs = time.perf_counter() - t0
     info = res.info
     pg = (res.solution.u.gen[:, 0] * 100.0).cpu().numpy()
     print(f"phase 3: case9 {info.status} outer {info.outer} (pin "
           f"{PIN_OUTER}) cumul {info.cumul} (pin {PIN_CUMUL}) obj "
           f"{info.objval!r} pg {np.round(pg, 3).tolist()} in {secs:.2f} s; "
-          f"launches tron {tron_cuda.launches} bus {bus_cuda.launches}")
+          f"launches tron {launched['tron_alm_branch']} bus "
+          f"{launched['bus_scatter']}")
     _check(info.status == "Solved", f"case9: status {info.status}")
     _check(5296.0 <= info.objval <= 5304.5, f"case9: obj {info.objval}")
     _check(bool(np.all(np.abs(pg - np.array([89.8, 134.32, 94.19])) <= 1.0)),
@@ -769,11 +816,11 @@ def phase3_case9(dev, on_card: bool) -> dict:
     _check(abs(info.cumul - PIN_CUMUL) <= 0.02 * PIN_CUMUL,
            f"case9: cumul {info.cumul}")
     if on_card:
-        _check(tron_cuda.launches == info.cumul,
-               f"case9: {tron_cuda.launches} TRON launches for "
+        _check(launched['tron_alm_branch'] == info.cumul,
+               f"case9: {launched['tron_alm_branch']} TRON launches for "
                f"{info.cumul} inner iterations")
-        _check(bus_cuda.launches >= info.cumul,
-               f"case9: {bus_cuda.launches} bus launches")
+        _check(launched['bus_scatter'] >= info.cumul,
+               f"case9: {launched['bus_scatter']} bus launches")
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 seconds=secs)
 
@@ -1077,7 +1124,6 @@ def phase3d_case9_polar(dev, on_card: bool) -> dict:
 
 def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
     import exaadmm_tpu_torch as E
-    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
 
     _zero_launches()
     t0 = time.perf_counter()
@@ -1086,14 +1132,15 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
                           outer_eps=2e-4, warm_start=False, verbose=0,
                           device=dev)
     _sync(dev)
+    launched = _launches()
     secs = time.perf_counter() - t0
     info = res.info
     rel = abs(info.objval - MP_PIN_OBJ) / MP_PIN_OBJ
     print(f"phase 3b: case9 x 3 periods {info.status} outer {info.outer} "
           f"(pin {MP_PIN_OUTER}) cumul {info.cumul} (pin {MP_PIN_CUMUL}) obj "
           f"{info.objval!r} (rel diff {rel:.2e}) err_ramp {res.err_ramp:.3e} "
-          f"in {secs:.2f} s; launches branch {tron_cuda.launches} ramp "
-          f"{tron_cuda.ramp_launches} bus {bus_cuda.launches}")
+          f"in {secs:.2f} s; launches branch {launched['tron_alm_branch']} "
+          f"ramp {launched['tron_alm_ramp']} bus {launched['bus_scatter']}")
     _check(info.status == "Solved", f"case9 mp: status {info.status}")
     _check(abs(info.outer - MP_PIN_OUTER) <= 1, f"case9 mp: outer {info.outer}")
     _check(abs(info.cumul - MP_PIN_CUMUL) <= 0.02 * MP_PIN_CUMUL,
@@ -1101,13 +1148,13 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
     _check(rel <= 1e-6, f"case9 mp: obj {info.objval}")
     _check(res.err_ramp <= 1e-3, f"case9 mp: err_ramp {res.err_ramp}")
     if on_card:
-        _check(tron_cuda.launches == info.cumul
-               and tron_cuda.ramp_launches == info.cumul,
-               f"case9 mp: {tron_cuda.launches} branch and "
-               f"{tron_cuda.ramp_launches} ramp launches for {info.cumul} "
+        _check(launched['tron_alm_branch'] == info.cumul
+               and launched['tron_alm_ramp'] == info.cumul,
+               f"case9 mp: {launched['tron_alm_branch']} branch and "
+               f"{launched['tron_alm_ramp']} ramp launches for {info.cumul} "
                f"inner iterations")
-        _check(bus_cuda.launches == 2 * info.cumul,
-               f"case9 mp: {bus_cuda.launches} bus launches")
+        _check(launched['bus_scatter'] == 2 * info.cumul,
+               f"case9 mp: {launched['bus_scatter']} bus launches")
 
     # one period: no ramp batch, so no ramp launch
     _zero_launches()
@@ -1115,16 +1162,18 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
                           inner_iterlim=5, warm_start=False, verbose=0,
                           device=dev)
     _sync(dev)
+    launched = _launches()
     print(f"phase 3b: case9 x 1 period, {one.info.cumul} inner: launches "
-          f"branch {tron_cuda.launches} ramp {tron_cuda.ramp_launches} bus "
-          f"{bus_cuda.launches}")
+          f"branch {launched['tron_alm_branch']} ramp "
+          f"{launched['tron_alm_ramp']} bus {launched['bus_scatter']}")
     _check(bool(torch.isfinite(one.solution.acopf.u.gen).all()),
            "case9 x 1 period: u not finite")
     if on_card:
-        _check(tron_cuda.ramp_launches == 0
-               and tron_cuda.launches == one.info.cumul,
-               f"case9 x 1 period: {tron_cuda.launches} branch and "
-               f"{tron_cuda.ramp_launches} ramp launches for "
+        _check(launched['tron_alm_ramp'] == 0
+               and launched['tron_alm_branch'] == one.info.cumul,
+               f"case9 x 1 period: {launched['tron_alm_branch']} branch "
+               f"and "
+               f"{launched['tron_alm_ramp']} ramp launches for "
                f"{one.info.cumul} inner iterations")
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 err_ramp=res.err_ramp, seconds=secs)
@@ -1176,7 +1225,6 @@ def phase3c_case9_qpsub(dev, on_card: bool) -> dict:
     import exaadmm_tpu_torch as E
     from exaadmm_tpu_torch.models.qpsub.model import QP_KEYS
     from exaadmm_tpu_torch.models.qpsub.sqp import SqpBasePoint
-    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
     from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
     from tests import qpsub_fixture as fx
 
@@ -1194,6 +1242,7 @@ def phase3c_case9_qpsub(dev, on_card: bool) -> dict:
                         rho_pq=4000.0, rho_va=4000.0, outer_eps=2e-6,
                         verbose=0, device=dev)
     _sync(dev)
+    launched = _launches()
     secs = time.perf_counter() - t0
     info = res.info
     lam = res.sqp_out["lambda"]
@@ -1204,7 +1253,7 @@ def phase3c_case9_qpsub(dev, on_card: bool) -> dict:
           f"it/s in the ADMM loop); dual_infeas "
           f"{res.sqp_out['dual_infeas'].shape} lambda {lam.shape}, max "
           f"lambda[2:] {lam[2:].max():.3e}; launches qpsub "
-          f"{tron_cuda.qpsub_launches} bus {bus_cuda.launches}")
+          f"{launched['tron_alm_qpsub']} bus {launched['bus_scatter']}")
     _check(info.status == "Solved", f"case9 QP: status {info.status}")
     for name in ("outer", "cumul"):
         n = getattr(info, name)
@@ -1216,11 +1265,11 @@ def phase3c_case9_qpsub(dev, on_card: bool) -> dict:
     _check(lam.shape == (4, 9), "case9 QP: lambda shape")
     _check(bool(np.all(lam[2:] <= 1e-12)), "case9 QP: lambda[2:] > 1e-12")
     if on_card:
-        _check(tron_cuda.qpsub_launches == info.cumul,
-               f"case9 QP: {tron_cuda.qpsub_launches} qpsub launches for "
+        _check(launched['tron_alm_qpsub'] == info.cumul,
+               f"case9 QP: {launched['tron_alm_qpsub']} qpsub launches for "
                f"{info.cumul} iterations")
-        _check(bus_cuda.launches == 2 * info.cumul,
-               f"case9 QP: {bus_cuda.launches} bus launches")
+        _check(launched['bus_scatter'] == 2 * info.cumul,
+               f"case9 QP: {launched['bus_scatter']} bus launches")
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 seconds=secs)
 
@@ -1413,6 +1462,323 @@ def phase7_mpec(dev, data, on_card: bool) -> dict:
                 mismatch=info.mismatch, peak=peak, nstorage=nsto)
 
 
+def _w_spread(sol, grid) -> float:
+    """The largest spread, over the buses, of the w copies that the line
+    rows of ``sol`` hold (v rows 4 and 5, written from the bus update):
+    0 when every row sits where ``grid`` says its line is."""
+    v = sol.v.line.cpu().numpy()
+    fr, to = grid.line_from.cpu().numpy(), grid.line_to.cpu().numpy()
+    real = grid.line_mask.cpu().numpy() > 0.5
+    w = np.concatenate([v[real, 4], v[real, 5]])
+    bus = np.concatenate([fr[real], to[real]])
+    lo = np.full(grid.nbus, np.inf)
+    hi = np.full(grid.nbus, -np.inf)
+    np.minimum.at(lo, bus, w)
+    np.maximum.at(hi, bus, w)
+    has = np.isfinite(lo)
+    return float((hi[has] - lo[has]).max())
+
+
+def phase10a_mixed(dev, data, on_card: bool, base: dict,
+                   case9_outer: int = 30) -> dict:
+    """Mixed precision: an fp64 solve whose branch batch runs in fp32.
+
+    Phase 2's fp64 batch goes through the mixed path's cast
+    (``branch.cast_down``) and the f32 branch kernel is held against its
+    f32 plain version with phase 2's fp32 thresholds, timed beside the f64
+    kernel on the uncast batch; then ``solve_acopf(mixed_precision=True)``
+    at phase 4's configuration against phase 4's ``base`` (objective within
+    1e-3, the state fp64, every branch launch the f32 instance); then case9
+    with and without line limits to Solved at outer_eps 2e-4, within 1e-3
+    of the fp64 pins. A rehearsal may cut ``case9_outer``, and then only
+    finiteness is held there."""
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.models.acopf import branch
+    from exaadmm_tpu_torch.ops import tron_cuda
+    from exaadmm_tpu_torch.utils.environment import Parameters
+    from exaadmm_tpu_torch.utils.timing import time_ms
+
+    par = Parameters(verbose=0, tron_step_cap=50, mixed_precision=True)
+    model, sol = _it1_state(dev, data, torch.float64, par)
+    batch = branch.branch_inputs(sol, model.grid, par, 1)
+    x0, xl, xu, params, lam0, mu0, act = batch
+    down = branch.cast_down(x0, xl, xu, params, lam0, mu0)
+    opts32 = branch.branch_tolerances(par, torch.float32)
+    opts64 = branch.branch_tolerances(par, torch.float64)
+
+    def kernel():
+        return tron_cuda.tron_alm_branch(*down, active0=act, **opts32)
+
+    def plain():
+        return tron_cuda.tron_alm_branch_plain(*down, active0=act, **opts32)
+
+    r = _tron_vs_plain("phase 10a: tron_alm_branch f32 in an fp64 solve",
+                       "tron_alm_branch", kernel, plain, act, torch.float32,
+                       dev)
+    ms64, _ = time_ms(lambda: tron_cuda.tron_alm_branch(
+        x0, xl, xu, params, lam0, mu0, active0=act, **opts64), dev, reps=5,
+        warmup=1)
+    print(f"phase 10a: branch batch of {x0.shape[1]} lanes at it1, device ms "
+          f"per launch: f32 (cast down) {r['ms']:.4f}, f64 {ms64:.4f} "
+          f"({r['ms'] / ms64:.3f}x); f32 bound {r['bound_ms']:.5f} "
+          f"({r['bound_by']})")
+    out = {"kernel": dict(r, ms64=ms64)}
+
+    # the same for the polar batch (no line limits) of phase 2d's setup
+    pmodel, psol = _it1_state(dev, data, torch.float64, par, pad=1,
+                              use_linelimit=False)
+    px0, pxl, pxu, pparams, plam0, pmu0, pact = branch.polar_inputs(
+        psol, pmodel.grid, par)
+    pdown = branch.cast_down(px0, pxl, pxu, pparams, plam0, pmu0)
+    popts32 = branch.polar_tolerances(par, torch.float32)
+    rp = _tron_vs_plain(
+        "phase 10a: tron_alm_polar f32 in an fp64 solve", "tron_alm_polar",
+        lambda: tron_cuda.tron_alm_polar(*pdown, active0=pact, **popts32),
+        lambda: tron_cuda.tron_alm_polar_plain(*pdown, active0=pact,
+                                               **popts32),
+        pact, torch.float32, dev)
+    pms64, _ = time_ms(lambda: tron_cuda.tron_alm_polar(
+        px0, pxl, pxu, pparams, plam0, pmu0, active0=pact,
+        **branch.polar_tolerances(par, torch.float64)), dev, reps=5,
+        warmup=1)
+    print(f"phase 10a: polar batch of {px0.shape[1]} lanes at it1, device ms "
+          f"per launch: f32 (cast down) {rp['ms']:.4f}, f64 {pms64:.4f} "
+          f"({rp['ms'] / pms64:.3f}x); f32 bound {rp['bound_ms']:.5f} "
+          f"({rp['bound_by']})")
+    out["polar_kernel"] = dict(rp, ms64=pms64)
+
+    _sync(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = E.solve_acopf(data.case, data=data, device=dev,
+                        mixed_precision=True, **MAIN_KW)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    entries = dict(tron_cuda.launches)
+    info = res.info
+    rate = info.cumul / info.time_overall
+    rel = abs(info.objval - base["obj"]) / abs(base["obj"])
+    dtype = res.solution.u.line.dtype
+    print(f"phase 10a: {data.case} mixed precision: {info.outer} outer, "
+          f"{info.cumul} inner (phase 4: {base['outer']} / {base['cumul']});"
+          f" obj {info.objval!r} (rel diff to phase 4's {rel:.2e}); state "
+          f"{dtype}; ADMM loop {info.time_overall:.3f} s = {rate:.2f} inner "
+          f"it/s (phase 4: {base['rate']:.2f}), whole call {secs:.3f} s; "
+          f"launches {launches}, by entry {entries}")
+    _check(bool(np.isfinite(info.objval))
+           and bool(torch.isfinite(res.solution.u.line).all()),
+           "mixed path: not finite")
+    _check(dtype == torch.float64 and res.solution.branch_alm.mu.dtype
+           == torch.float64, f"mixed path: state {dtype}")
+    _check(info.outer == base["outer"], f"mixed path: outer {info.outer}")
+    _check(rel <= 1e-3, f"mixed path: obj {info.objval!r}")
+    if on_card:
+        _check(entries.get("tron_alm_branch_f32", 0) == info.cumul
+               and "tron_alm_branch_f64" not in entries
+               and launches["bus_scatter"] == 2 * info.cumul,
+               f"mixed path: launches {entries} {launches}")
+    out["main"] = dict(launches=launches, rate=rate, outer=info.outer,
+                       cumul=info.cumul, obj=info.objval)
+
+    for label, pin in MIXED9_PINS.items():
+        limits = label == "with line limits"
+        _zero_launches()
+        t0 = time.perf_counter()
+        res = E.solve_acopf(CASE9, rho_pq=4e2, rho_va=4e4, outer_eps=2e-4,
+                            outer_iterlim=case9_outer, use_linelimit=limits,
+                            mixed_precision=True, verbose=0, device=dev)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        info = res.info
+        entries = dict(tron_cuda.launches)
+        rel = abs(info.objval - pin) / pin
+        print(f"phase 10a: case9 {label}, mixed precision: {info.status} "
+              f"outer {info.outer} cumul {info.cumul} obj {info.objval!r} "
+              f"(rel diff to the fp64 pin {pin!r}: {rel:.2e}) in "
+              f"{secs:.2f} s; launches by entry {entries}")
+        _check(bool(np.isfinite(info.objval)), f"case9 mixed {label}: obj")
+        if case9_outer >= 30:
+            _check(info.status == "Solved",
+                   f"case9 mixed {label}: {info.status}")
+            _check(rel <= 1e-3, f"case9 mixed {label}: obj {info.objval!r}")
+        if on_card:
+            entry = "tron_alm_branch_f32" if limits else "tron_alm_polar_f32"
+            _check(entries == {entry: info.cumul},
+                   f"case9 mixed {label}: launches {entries}")
+        out[label] = dict(status=info.status, outer=info.outer,
+                          cumul=info.cumul, obj=info.objval)
+    return out
+
+
+def _sorted_solve(dev, model, sol, label: str, base: dict,
+                  on_card: bool) -> dict:
+    """Phase 4's loop on ``model`` with line sorting on, against phase 4's
+    ``base``: the same outer count, cumul within 2 %, the objective within
+    1e-6 relative, the rows back in canonical order. Records the line order
+    of every sorted round (``ids``)."""
+    from exaadmm_tpu_torch.algorithms.admm_two_level import admm_two_level
+    from exaadmm_tpu_torch.models.acopf.model import ModelAcopf
+
+    ids = []
+    reorder = ModelAcopf.with_line_order
+
+    def recorded(self, line_ids):
+        ids.append(line_ids.clone())
+        return reorder(self, line_ids)
+
+    ModelAcopf.with_line_order = recorded
+    try:
+        _sync(dev)
+        _zero_launches()
+        sol, info = admm_two_level(model, sol)
+        _sync(dev)
+    finally:
+        ModelAcopf.with_line_order = reorder
+    launches = _launches()
+    rate = info.cumul / info.time_overall
+    spread = _w_spread(sol, model.grid)
+    print(f"phase 10b: {label}: {info.outer} outer, {info.cumul} inner "
+          f"(phase 4: {base['outer']} / {base['cumul']}), obj "
+          f"{info.objval!r} (rel diff to phase 4's "
+          f"{abs(info.objval - base['obj']) / abs(base['obj']):.2e}); "
+          f"{len(ids)} sorted rounds; rows in the grid's order (largest "
+          f"spread of a bus's w copies {spread:.3e}); ADMM loop "
+          f"{info.time_overall:.3f} s = {rate:.2f} inner it/s (phase 4: "
+          f"{base['rate']:.2f}); launches {launches}")
+    _check(info.outer == base["outer"], f"{label}: outer {info.outer}")
+    _check(abs(info.cumul - base["cumul"]) <= 0.02 * base["cumul"],
+           f"{label}: cumul {info.cumul}")
+    _check(abs(info.objval - base["obj"]) <= 1e-6 * abs(base["obj"]),
+           f"{label}: obj {info.objval!r}")
+    _check(spread < 1e-12, f"{label}: rows out of order ({spread})")
+    if on_card:
+        _check(launches["tron_alm_branch"] == info.cumul
+               and launches["bus_scatter"] == 2 * info.cumul,
+               f"{label}: launches {launches}")
+    return dict(launches=launches, rate=rate, outer=info.outer,
+                cumul=info.cumul, obj=info.objval, ids=ids, sol=sol)
+
+
+def _time_sorted(dev, label: str, batch, opts, check_plain: bool) -> dict:
+    """One branch batch timed in its own lane order and sorted by the
+    steps its lanes take (``minor_iters + alm_iters``, stable ascending,
+    the driver's order): the sorted run bit-identical to the unsorted one
+    lane for lane and, with ``check_plain``, to the plain version."""
+    from exaadmm_tpu_torch.ops import tron_cuda
+    from exaadmm_tpu_torch.utils.timing import time_ms
+
+    act = batch[6]
+    first = tron_cuda.tron_alm_branch(*batch[:6], active0=act, **opts)
+    steps = first.minor_iters + first.alm_iters
+    order = torch.argsort(steps, stable=True)
+    sbatch = _take_lanes(batch, order)
+    again = tron_cuda.tron_alm_branch(*sbatch[:6], active0=sbatch[6],
+                                      **opts)
+    _check(bool(torch.equal(again.x, first.x[:, order]))
+           and bool(torch.equal(again.minor_iters, first.minor_iters[order])),
+           f"{label}: the sorted batch differs from the unsorted one")
+    if check_plain:
+        plain = tron_cuda.tron_alm_branch_plain(*sbatch[:6],
+                                                active0=sbatch[6], **opts)
+        _check(bool(torch.equal(again.x, plain.x))
+               and bool(torch.equal(again.minor_iters, plain.minor_iters)),
+               f"{label}: the kernel differs from its plain version on the "
+               f"sorted batch")
+    ms, _ = time_ms(lambda: tron_cuda.tron_alm_branch(
+        *batch[:6], active0=act, **opts), dev, reps=5, warmup=1)
+    ms_sorted, _ = time_ms(lambda: tron_cuda.tron_alm_branch(
+        *sbatch[:6], active0=sbatch[6], **opts), dev, reps=5, warmup=1)
+    s = steps[act].cpu().numpy()
+    print(f"phase 10b: {label}, {act.shape[0]} lanes (steps p50 "
+          f"{np.percentile(s, 50):.0f} p99 {np.percentile(s, 99):.0f} max "
+          f"{s.max()}): device ms per launch unsorted {ms:.4f}, sorted "
+          f"{ms_sorted:.4f} ({ms_sorted / ms:.3f}x); sorted bit-identical "
+          f"to unsorted" + (" and to the plain version" if check_plain
+                            else ""))
+    return dict(ms=ms, ms_sorted=ms_sorted)
+
+
+def phase10b_sort(dev, data, mp_data, mp_loads, T: int, on_card: bool,
+                  base: dict) -> dict:
+    """Line sorting: phase 4's configuration with ``sort_lines=True``
+    against phase 4's ``base``; the scatter held against its plain version
+    over the CSR of every sorted round's line order; the branch kernel's
+    steady-state time in the driver's order and sorted; then the kernel
+    alone on phase 2's batch and on the multi-period path's, each sorted by
+    its own steps."""
+    from exaadmm_tpu_torch.models.acopf import branch, kernels
+    from exaadmm_tpu_torch.models.acopf import model as M
+    from exaadmm_tpu_torch.utils.environment import (Parameters,
+                                                     permute_solution_lines)
+    from exaadmm_tpu_torch.utils.grid_data import permute_lines
+
+    kw = {k: MAIN_KW[k] for k in ("outer_iterlim", "inner_iterlim",
+                                  "outer_eps", "verbose")}
+    out = {}
+    par = Parameters(sort_lines=True, **kw)
+    model = M.build_model(data, par, device=dev)
+    sol0 = M.init_solution(model, MAIN_KW["rho_pq"], MAIN_KW["rho_va"])
+    out["sorted"] = _sorted_solve(dev, model, sol0, "sort_lines=True",
+                                  base, on_card)
+    _check(len(out["sorted"]["ids"]) == out["sorted"]["outer"] - 1,
+           "sort_lines: a round was not sorted")
+
+    # the scatter over each sorted round's CSR, on phase 2's perturbed
+    # state moved into that round's order, against its plain version and
+    # against the sums of the canonical order
+    _, state = _it1_state(dev, data, torch.float64, Parameters(verbose=0),
+                          pad=1)
+    gd = model.grid
+    canon = kernels.bus_arc_values(state.v, state.z, state.l, state.rho, gd)
+    ref = _hold_scatter(((canon, gd.arc_bus, gd.arc_ptr, gd.arc_idx),),
+                        1e-13, "bus_scatter canonical order")
+    worst = 0.0
+    from exaadmm_tpu_torch.ops import bus_cuda
+    base_sums = bus_cuda.bus_scatter(canon, gd.arc_bus, gd.arc_ptr,
+                                     gd.arc_idx)
+    for k, ids in enumerate(out["sorted"]["ids"]):
+        gp = permute_lines(gd, ids)
+        sp = permute_solution_lines(state, ids)
+        vals = kernels.bus_arc_values(sp.v, sp.z, sp.l, sp.rho, gp)
+        rel, _ = _hold_scatter(((vals, gp.arc_bus, gp.arc_ptr, gp.arc_idx),),
+                               1e-13, f"bus_scatter sorted round {k + 2}")
+        got = bus_cuda.bus_scatter(vals, gp.arc_bus, gp.arc_ptr, gp.arc_idx)
+        scale = base_sums.abs().amax(dim=0).clamp_min(1e-300)
+        moved = float(((got - base_sums).abs().amax(dim=0) / scale).max())
+        _check(moved <= 1e-13, f"sorted round {k + 2}: sums moved {moved}")
+        worst = max(worst, rel, moved)
+        print(f"phase 10b: bus_scatter over sorted round {k + 2}'s CSR "
+              f"({gp.arc_idx.shape[0]} arcs): max rel diff to the plain "
+              f"version {rel:.3e}, to the canonical order's sums "
+              f"{moved:.3e} (tol 1e-13), bit-identical reruns")
+    out["scatter_rel"] = max(worst, ref[0])
+
+    # the branch kernel at steady state: the batch of the next inner
+    # iteration from the sorted solve's final state, in canonical order
+    # and sorted by its lanes' steps
+    fin = out["sorted"].pop("sol")
+    batch = branch.branch_inputs(fin, gd, par, 2)
+    out["steady"] = _time_sorted(dev, "branch kernel at steady state",
+                                 batch,
+                                 branch.branch_tolerances(par,
+                                                          torch.float64),
+                                 check_plain=False)
+
+    p2 = Parameters(verbose=0, tron_step_cap=50)
+    opts = branch.branch_tolerances(p2, torch.float64)
+    m2, s2 = _it1_state(dev, data, torch.float64, p2)
+    out["it1"] = _time_sorted(
+        dev, "branch kernel at it1 (phase 2's batch)",
+        branch.branch_inputs(s2, m2.grid, p2, 1), opts, check_plain=True)
+    out["it1_periods"] = _time_sorted(
+        dev, f"branch kernel at it1, {T} periods",
+        _periods_batch(dev, mp_data, mp_loads, T, torch.float64, p2), opts,
+        check_plain=True)
+    out["sorted"].pop("ids")
+    return out
+
+
 def two_level_hooks(model, beta: float = 1e3):
     """The two-level driver's inner iteration, hook by hook: (name,
     fn(sol, iteration)); the last returns (sol, scalars)."""
@@ -1526,12 +1892,13 @@ def solve_to_tolerance(dev, data) -> dict:
 
 
 def run(device, big_data, mp_data, mp_loads, T: int,
-        case118_outer: int = 25) -> dict:
+        case118_outer: int = 25, case9_mixed_outer: int = 30) -> dict:
     """All phases on ``device``; ``big_data`` is the single-period grid,
     ``mp_data`` with ``mp_loads`` ((Pd, Qd), (nbus, T) each) the
     multi-period one. On a CPU device (a rehearsal) the wrappers run their
     plain versions, so the kernel comparisons and launch counts are not
-    meaningful there; a rehearsal may cut case118's depth."""
+    meaningful there; a rehearsal may cut the depth of case118 and of phase
+    10a's case9 solves."""
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     mp = (mp_data, mp_loads, T, on_card)
@@ -1563,8 +1930,13 @@ def run(device, big_data, mp_data, mp_loads, T: int,
                                                   results["main"])
     results["main_2ranks"] = phase9b_two_ranks(dev, big_data, on_card,
                                                results["main"])
+    results["mixed"] = phase10a_mixed(dev, big_data, on_card,
+                                      results["main"], case9_mixed_outer)
+    results["sort"] = phase10b_sort(dev, big_data, *mp, results["main"])
+    results["main_mixed"] = results["mixed"]["main"]
+    results["main_sorted"] = results["sort"]["sorted"]
     main_runs = ("main", "main_mp", "main_qp", "main_mpec", "main_polar",
-                 "main_mesh1", "main_2ranks")
+                 "main_mesh1", "main_2ranks", "main_mixed", "main_sorted")
     kern = []
     for name, key in (("tron_alm_branch", "tron"), ("tron_alm_ramp", "ramp"),
                       ("tron_alm_qpsub", "qpsub"), ("bus_scatter", "bus"),

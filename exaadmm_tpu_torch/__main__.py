@@ -12,9 +12,11 @@ otherwise, 2 on a usage error).
 
 New here: ``--device`` (default ``cuda``; without a card the solve fails, as
 the entry points do; there is no fallback). fp64 is the default on every
-device (Hopper has native fp64); ``--fp32`` selects ``torch.float32``. The
-JAX CLI's ``--branch-backend``, ``--bus-backend`` and ``--mixed-precision``
-select TPU code paths the port does not have, and are unknown flags here.
+device (Hopper has native fp64); ``--fp32`` selects ``torch.float32``.
+``--mixed-precision`` (an fp64 solve with the branch batch in fp32) cannot
+be combined with ``--fp32``. The JAX CLI's ``--branch-backend`` and
+``--bus-backend`` select TPU code paths the port does not have, and are
+unknown flags here.
 
 ``--mesh N`` splits the lines over N ranks: it starts N local processes
 (rank r on ``cuda:r``, or all on the CPU over gloo with ``--device cpu``);
@@ -60,6 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run in float64 (the default on every device)")
     p.add_argument("--tron-step-cap", type=int, default=None,
                    help="lockstep trust-region step budget per branch solve")
+    p.add_argument("--mixed-precision", action="store_true",
+                   help="fp64 solve with the branch batch in fp32; "
+                        "consensus/residual stay fp64")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="split the lines over N ranks (local processes, or "
                         "the launcher's when RANK/WORLD_SIZE are set)")
@@ -107,7 +112,7 @@ def _solve(mesh, device, args):
     if args.solver == "acopf":
         res = X.solve_acopf(args.case, use_projection=args.projection,
                             mesh=mesh, tron_step_cap=args.tron_step_cap,
-                            **common)
+                            mixed_precision=args.mixed_precision, **common)
     elif args.solver == "rolling":
         res, _infos = X.solve_acopf_rolling(
             args.case, args.load_prefix,
@@ -171,6 +176,10 @@ def main(argv=None) -> int:
 
     if args.fp32 and args.fp64:
         print("--fp32 and --fp64 are mutually exclusive", file=sys.stderr)
+        return 2
+    if args.mixed_precision and args.fp32:
+        print("--mixed-precision needs the fp64 state (it casts only the "
+              "branch batch down); drop --fp32", file=sys.stderr)
         return 2
     if args.solver in ("rolling", "mpacopf") and not args.load_prefix:
         print(f"--load-prefix is required for --solver {args.solver}",

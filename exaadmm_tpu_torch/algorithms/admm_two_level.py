@@ -18,10 +18,19 @@ of ``IterationInformation`` (the JAX package's ``verbose >= 2`` stepping):
 it synchronizes the device after every hook, so the times are the hooks' and
 the loop is slower. With it off (the default) the loop issues no extra call.
 
+With ``Parameters.sort_lines`` and a model that ``supports_line_sort``,
+each outer round after the first starts by sorting the line batch by the
+lanes' effort in the last inner iteration (``lane_steps``, stable
+ascending, as the JAX package's ``_sorted_inner_while``): the hooks then run
+on ``model.with_line_order(ids)``, the caller's model with its lines in the
+composed order (the model knows which of its arrays are indexed by line),
+and the state is permuted with it. The sort reads nothing back. The
+solution is put back into canonical order before it is returned.
+
 With the lines split across ranks (``parallel/sharding.py``) every rank runs
 this loop over its own model; the scalars read back here derive from
 all-reduced tensors and replicated data, so every rank breaks on the same
-iteration.
+iteration. A rank sorts its own line window, with no communication.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import time
 
 import torch
 
-from ..utils.environment import IterationInformation, Solution
+from ..utils.environment import (IterationInformation, Solution,
+                                 permute_solution_lines)
 
 
 def _beta_cap(dtype) -> float:
@@ -78,6 +88,10 @@ def admm_two_level(model, sol: Solution,
     outer_tol = sqrt_d * par.outer_eps
     dtype = sol.u.gen.dtype
     call = _timed_call(info, sol.u.gen.device) if par.time_hooks else _call
+    sorting = getattr(model, "supports_line_sort", False) and par.sort_lines
+    model0 = model
+    # position -> canonical line id of the current order (None: canonical)
+    line_ids = None
 
     beta = min(par.initial_beta, _beta_cap(dtype))
     info.status = "IterationLimit"
@@ -89,10 +103,18 @@ def admm_two_level(model, sol: Solution,
               f"{'Mismatch':>10} {'OuterTol':>10} {'Beta':>10}")
 
     t0 = time.perf_counter()
+    stats = None
     while info.outer < par.outer_iterlim:
         info.outer += 1
         info.norm_z_prev = info.norm_z_curr  # outer prestep: save ||z||
         eps_pri = sqrt_d / (2500.0 * info.outer)
+
+        if sorting and stats is not None:
+            # the first round's lane_steps would be all 0: the identity
+            reorder = torch.argsort(stats["lane_steps"], stable=True)
+            line_ids = reorder if line_ids is None else line_ids[reorder]
+            model = model0.with_line_order(line_ids)
+            sol = permute_solution_lines(sol, reorder)
 
         inner = 0
         scalars = stats = None
@@ -131,6 +153,8 @@ def admm_two_level(model, sol: Solution,
         if info.norm_z_curr > par.theta * info.norm_z_prev:
             beta = min(par.inc_c * beta, _beta_cap(dtype))
 
+    if line_ids is not None:
+        sol = permute_solution_lines(sol, torch.argsort(line_ids))
     info.time_overall = time.perf_counter() - t0
     par.beta = beta
     return sol, info

@@ -13,6 +13,9 @@ versions. ``use_projection`` runs the power-flow projection
 of a ``torch.distributed`` run) splits the lines across the ranks;
 ``pad_lines_to`` pads the line batch to a multiple and defaults to the mesh
 size. Every rank gets the whole solution and the same ``info`` back.
+
+``mixed_precision`` runs the branch batch in fp32 inside an fp64 solve
+(``Parameters.mixed_precision``); it needs ``dtype=torch.float64``.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ def solve_acopf(
     theta: float = 0.8,
     inc_c: float = 6.0,
     tron_step_cap: int | None = None,
+    mixed_precision: bool = False,
     pad_lines_to: int = 1,
     mesh=None,
     device="cuda",
@@ -72,6 +76,12 @@ def solve_acopf(
     the lines across the ranks of a multi-process run; ``pad_lines_to``
     then defaults to the mesh size.
     """
+    if mixed_precision and dtype != torch.float64:
+        # the flag would otherwise do nothing: only fp64 state is cast down,
+        # so an fp32 solve would run as plain fp32 under a mixed label
+        raise ValueError(
+            "mixed_precision=True needs an fp64 solve (the branch batch is "
+            "cast DOWN to fp32): pass dtype=torch.float64")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={device!r} asked for, but CUDA is not "
@@ -92,6 +102,7 @@ def solve_acopf(
         inc_c=inc_c,
         verbose=verbose,
         tron_step_cap=tron_step_cap,
+        mixed_precision=mixed_precision,
     )
     model = M.build_model(data, par, use_linelimit=use_linelimit,
                           tight_factor=tight_factor,
@@ -134,6 +145,7 @@ def solve_acopf_from_env(env: AdmmEnv, **overrides) -> SolveResult:
         verbose=par.verbose,
         # a step cap truncates lanes, so a recorded run re-solves with it
         tron_step_cap=par.tron_step_cap,
+        mixed_precision=par.mixed_precision,
     )
     kwargs.update(overrides)
     return solve_acopf(env.case, **kwargs)

@@ -17,7 +17,8 @@ rounds (JAX ``branch_obj_polar`` through ``tron_batched``).
 
 Every line is a lane of one TRON/ALM batch (``ops/tron_cuda.py``): the
 hand-written kernel on the GPU (the branch instance, or the polar instance
-without line limits), the plain lockstep version on the CPU.
+without line limits), the plain lockstep version on the CPU. With
+``Parameters.mixed_precision`` an fp64 solve runs that batch in fp32.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ...ops import tron_cuda
+from ...ops.tron import TronALMResult
 from ...parallel.sharding import all_reduce_max, all_reduce_sum
 from ...utils.environment import BranchALMState, Parameters, Solution
 from ...utils.grid_data import GridData
@@ -388,24 +390,51 @@ def polar_tolerances(par: Parameters, dtype):
     return dict(branch_tolerances(par, dtype), max_auglag=1)
 
 
+def cast_down(*ts):
+    """fp32 copies of the fp64 batch inputs (a params dict casts every
+    entry), contiguous, as the f32 kernel instance requires."""
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        return t.to(torch.float32).contiguous()
+    return tuple(cast(t) for t in ts)
+
+
+def cast_up(res: TronALMResult, dtype) -> TronALMResult:
+    """The batch's result with its floating-point outputs cast to ``dtype``."""
+    return res._replace(x=res.x.to(dtype), lam=res.lam.to(dtype),
+                        mu=res.mu.to(dtype), cviol=res.cviol.to(dtype))
+
+
 def branch_update(sol: Solution, gd: GridData, par: Parameters,
                   inner_iter: int, use_linelimit: bool = True):
     """Solve all line subproblems; returns (new u line block, new ALM state,
     stats). The stats are tensors (nothing is read back here). Without line
-    limits the ALM state is returned unchanged and ``max_cviol`` is 0."""
+    limits the ALM state is returned unchanged and ``max_cviol`` is 0.
+
+    With ``par.mixed_precision`` on fp64 state the batch's inputs are cast
+    down and it runs in fp32 with fp32 tolerances (the kernel's f32
+    instance); x, the multipliers, the penalties and the violations are
+    cast back up before the flows, so the returned state stays fp64
+    (``cast_down``/``cast_up``, JAX ``branch_update``'s ``_down``/``_up``)."""
+    out_dtype = sol.u.line.dtype
+    mixed = par.mixed_precision and out_dtype == torch.float64
+    solve_dtype = torch.float32 if mixed else out_dtype
     if use_linelimit:
-        x0, xl, xu, params, lam0, mu0, active0 = branch_inputs(
-            sol, gd, par, inner_iter)
-        res = tron_cuda.tron_alm_branch(
-            x0, xl, xu, params, lam0, mu0, active0=active0,
-            **branch_tolerances(par, x0.dtype))
-        new_alm = BranchALMState(lam1=res.lam[0], lam2=res.lam[1], mu=res.mu)
+        *batch, active0 = branch_inputs(sol, gd, par, inner_iter)
+        solve = tron_cuda.tron_alm_branch
+        opts = branch_tolerances(par, solve_dtype)
     else:
-        x0, xl, xu, params, lam0, mu0, active0 = polar_inputs(sol, gd, par)
-        res = tron_cuda.tron_alm_polar(
-            x0, xl, xu, params, lam0, mu0, active0=active0,
-            **polar_tolerances(par, x0.dtype))
-        new_alm = sol.branch_alm
+        *batch, active0 = polar_inputs(sol, gd, par)
+        solve = tron_cuda.tron_alm_polar
+        opts = polar_tolerances(par, solve_dtype)
+    if mixed:
+        batch = cast_down(*batch)
+    res = solve(*batch, active0=active0, **opts)
+    if mixed:
+        res = cast_up(res, out_dtype)
+    new_alm = (BranchALMState(lam1=res.lam[0], lam2=res.lam[1], mu=res.mu)
+               if use_linelimit else sol.branch_alm)
 
     p = {k: getattr(gd, k) for k in Y_KEYS}
     pij, qij, pji, qji = _flows(res.x, p)
@@ -427,5 +456,9 @@ def branch_update(sol: Solution, gd: GridData, par: Parameters,
         "avg_auglag_it": sums[0] / gd.nline,
         "avg_minor_it": sums[1] / gd.nline,
         "max_cviol": max_cv,
+        # each lane's trust-region steps and ALM rounds (0 on padded lanes):
+        # the difficulty that Parameters.sort_lines orders the lanes by
+        "lane_steps": ((res.minor_iters + res.alm_iters)
+                       * m.to(res.minor_iters.dtype)),
     }
     return u_new, new_alm, stats

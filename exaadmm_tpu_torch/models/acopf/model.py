@@ -8,10 +8,12 @@ for the tolerance scalings sqrt(nvar)*eps used by the driver.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 from ...utils.environment import Blocks, BranchALMState, Parameters, Solution
-from ...utils.grid_data import GridData, build_grid_data
+from ...utils.grid_data import GridData, build_grid_data, permute_lines
 from ...utils.opfdata import OPFData
 from . import kernels
 from .branch import branch_update
@@ -19,6 +21,10 @@ from .branch import branch_update
 
 class ModelAcopf:
     """The grid, the parameters and the hooks the two-level driver calls."""
+
+    # the driver may difficulty-sort the line batch between outer rounds
+    # (``Parameters.sort_lines``) through ``with_line_order``
+    supports_line_sort = True
 
     def __init__(self, grid: GridData, par: Parameters,
                  use_linelimit: bool = True):
@@ -28,6 +34,15 @@ class ModelAcopf:
         # pg bounds of the current period (rolling horizon tightens them)
         self.pgmin_curr = grid.pgmin
         self.pgmax_curr = grid.pgmax
+
+    def with_line_order(self, ids: torch.Tensor) -> "ModelAcopf":
+        """This model with its lines in the order ``ids`` (line i of the
+        result is line ``ids[i]`` of this one): the grid's line arrays and
+        its arc CSR move (``permute_lines``). Nothing else of the model is
+        indexed by line, and no hook depends on the line order."""
+        m = copy.copy(self)
+        m.grid = permute_lines(self.grid, ids)
+        return m
 
     @property
     def nvar(self) -> int:

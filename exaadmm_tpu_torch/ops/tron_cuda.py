@@ -22,9 +22,10 @@ machine; on a CPU tensor it runs the plain version
 ``ops/tron.py::tron_alm_batched`` with the instance's functions; any other
 device raises.
 
-``launches`` counts the branch kernel's launches, ``ramp_launches`` the ramp
-kernel's, ``qpsub_launches`` the QP-subproblem kernel's and
-``polar_launches`` the polar kernel's.
+``launches`` counts the kernels' launches by entry point
+(``tron_alm_branch_f64``, ``tron_alm_branch_f32`` and so on, so the f32
+instances of a mixed-precision solve show apart from the f64 ones);
+``instance_launches`` sums an instance's two.
 """
 
 from __future__ import annotations
@@ -37,10 +38,7 @@ import torch
 from . import _build
 from .tron import TronALMResult, tron_alm_batched
 
-launches = 0
-ramp_launches = 0
-qpsub_launches = 0
-polar_launches = 0
+launches: dict = {}
 
 # (x0, xl, xu, params, lam0, mu0, active0, x, lam, mu, minor, alm, cviol,
 #  B, gtol, frtol, ctol, mu_max, max_minor, max_auglag, step_cap, stream)
@@ -62,6 +60,11 @@ QPSUB = _Instance("tron_alm_qpsub", 6, 2, 21 + 3 * 6 + 4)
 # the branch's parameter block (pack_params); no constraints
 POLAR = _Instance("tron_alm_polar", 4, 0, 33)
 _SUFFIX = {torch.float64: "_f64", torch.float32: "_f32"}
+
+
+def instance_launches(inst: _Instance) -> int:
+    """The launches of an instance's kernel, f64 and f32 together."""
+    return sum(launches.get(inst.name + sfx, 0) for sfx in _SUFFIX.values())
 
 
 def library(inst: _Instance):
@@ -178,6 +181,7 @@ def _launch(inst: _Instance, x0, xl, xu, P, lam0, mu0, active0, gtol, frtol,
     cap = max_minor * max_auglag if step_cap is None else step_cap
 
     lib = library(inst)
+    entry = inst.name + _SUFFIX[dtype]
     # the temporaries (P, act) may be freed on return while the kernel still
     # reads them: the caching allocator reuses their memory only for work
     # queued later on the same stream, so that is safe
@@ -185,10 +189,12 @@ def _launch(inst: _Instance, x0, xl, xu, P, lam0, mu0, active0, gtol, frtol,
             (x0, xl, xu, P, lam0, mu0, act, x, lam, mu, minor, alm, cviol)]
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, inst.name + _SUFFIX[dtype])(
+        err = getattr(lib, entry)(
             *ptrs, B, gtol, frtol, ctol, mu_max, max_minor, max_auglag, cap,
             stream)
     _build.check(lib, err, inst.name)
+    if B > 0:   # an empty batch launches no kernel
+        launches[entry] = launches.get(entry, 0) + 1
     return TronALMResult(x=x, lam=lam, mu=mu, minor_iters=minor,
                          alm_iters=alm, cviol=cviol)
 
@@ -207,12 +213,8 @@ def tron_alm_branch(x0, xl, xu, params, lam0, mu0, *, gtol: float,
                                      active0=active0, **opts)
     if x0.device.type != "cuda":
         raise ValueError(f"tron_alm_branch: unsupported device {x0.device}")
-    res = _launch(BRANCH, x0, xl, xu, pack_params(params), lam0, mu0,
-                  active0, **opts)
-    global launches
-    if x0.shape[1] > 0:   # an empty batch launches no kernel
-        launches += 1
-    return res
+    return _launch(BRANCH, x0, xl, xu, pack_params(params), lam0, mu0,
+                   active0, **opts)
 
 
 def tron_alm_ramp(x0, xl, xu, params, lam0, mu0, *, gtol: float,
@@ -229,12 +231,8 @@ def tron_alm_ramp(x0, xl, xu, params, lam0, mu0, *, gtol: float,
                                    active0=active0, **opts)
     if x0.device.type != "cuda":
         raise ValueError(f"tron_alm_ramp: unsupported device {x0.device}")
-    res = _launch(RAMP, x0, xl, xu, pack_ramp_params(params), lam0, mu0,
-                  active0, **opts)
-    global ramp_launches
-    if x0.shape[1] > 0:   # an empty batch launches no kernel
-        ramp_launches += 1
-    return res
+    return _launch(RAMP, x0, xl, xu, pack_ramp_params(params), lam0, mu0,
+                   active0, **opts)
 
 
 def tron_alm_qpsub(x0, xl, xu, params, lam0, mu0, *, gtol: float,
@@ -251,12 +249,8 @@ def tron_alm_qpsub(x0, xl, xu, params, lam0, mu0, *, gtol: float,
                                     active0=active0, **opts)
     if x0.device.type != "cuda":
         raise ValueError(f"tron_alm_qpsub: unsupported device {x0.device}")
-    res = _launch(QPSUB, x0, xl, xu, pack_qpsub_params(params), lam0, mu0,
-                  active0, **opts)
-    global qpsub_launches
-    if x0.shape[1] > 0:   # an empty batch launches no kernel
-        qpsub_launches += 1
-    return res
+    return _launch(QPSUB, x0, xl, xu, pack_qpsub_params(params), lam0, mu0,
+                   active0, **opts)
 
 
 def tron_alm_polar(x0, xl, xu, params, lam0, mu0, *, gtol: float,
@@ -273,9 +267,5 @@ def tron_alm_polar(x0, xl, xu, params, lam0, mu0, *, gtol: float,
                                     active0=active0, **opts)
     if x0.device.type != "cuda":
         raise ValueError(f"tron_alm_polar: unsupported device {x0.device}")
-    res = _launch(POLAR, x0, xl, xu, pack_params(params), lam0, mu0,
-                  active0, **opts)
-    global polar_launches
-    if x0.shape[1] > 0:   # an empty batch launches no kernel
-        polar_launches += 1
-    return res
+    return _launch(POLAR, x0, xl, xu, pack_params(params), lam0, mu0,
+                   active0, **opts)

@@ -21,7 +21,11 @@ three collapse into ``run_sharded``: cut the model and the state
 (``local_model``, ``local_solution``), run the loop, gather the state back
 (``gather_solution``). Every rank takes the same branch in the host loops
 because every scalar they read derives from all-reduced tensors and
-replicated data only.
+replicated data only. With ``Parameters.sort_lines`` each rank's loop sorts
+that rank's own line window and derives its local CSR again
+(``with_line_order`` of the ``local_model``), with no communication,
+and restores the window's order before the gather (JAX
+``make_sharded_fused_solver``'s per-shard sort).
 
 Under the gloo backend a CUDA tensor is staged through pinned host memory:
 gloo moves host buffers, and two ranks may share one card there. Under NCCL

@@ -88,6 +88,22 @@ class Parameters:
     # branch ALM termination (auglag kernel :128-137)
     alm_ctol: float = 1e-6
 
+    # difficulty-sort the line batch at the start of every outer round (a
+    # model with ``supports_line_sort``): the lanes are reordered by the
+    # trust-region steps and ALM rounds they took in the last inner
+    # iteration, ascending and stable, so the stragglers share warps and
+    # blocks of the TRON kernel instead of holding one lane in every warp.
+    # Every line-indexed array moves with them and the bus CSR is derived
+    # again on the device; the solution comes back in canonical order. The
+    # iteration is permutation-equivariant up to the order of the bus sums.
+    sort_lines: bool = False
+
+    # in an fp64 solve, run the branch TRON/ALM batch in fp32 (the kernel's
+    # f32 instance, fp32 tolerances) and cast its result back up, so the
+    # flows, the bus consensus, z, l, lz and the residual stay fp64. No
+    # effect on an fp32 solve.
+    mixed_precision: bool = False
+
 
 @dataclasses.dataclass
 class AdmmEnv:
@@ -197,6 +213,21 @@ class Solution(_TensorRecord):
 
 #: the Blocks fields of a Solution, in declaration order
 SOLUTION_BLOCKS = ("u", "v", "l", "rho", "z", "z_prev", "lz", "rp", "rd")
+
+
+def permute_solution_lines(sol: Solution, ids: torch.Tensor) -> Solution:
+    """``sol`` with every line-indexed row reordered by ``ids``: row i of the
+    result is row ``ids[i]`` of ``sol``, in the line block of each of
+    ``SOLUTION_BLOCKS`` and in the branch ALM state."""
+    def take(a):
+        return a.index_select(0, ids)
+
+    alm = sol.branch_alm
+    return sol.replace(
+        branch_alm=BranchALMState(lam1=take(alm.lam1), lam2=take(alm.lam2),
+                                  mu=take(alm.mu)),
+        **{k: getattr(sol, k).replace(line=take(getattr(sol, k).line))
+           for k in SOLUTION_BLOCKS})
 
 
 @dataclasses.dataclass

@@ -14,6 +14,10 @@ CSR arrays, built on the host with numpy, which the bus-scatter kernel walks
   ascending.
 - ``arc_bus`` (2*nline_padded,): the bus of every stacked row, the segment
   ids that the plain version of the scatter adds over.
+
+``permute_lines`` reorders the line batch (the difficulty sort of
+``Parameters.sort_lines``) and derives the arc CSR of the new order on the
+device.
 """
 
 from __future__ import annotations
@@ -213,6 +217,34 @@ def build_grid_data(
 LINE_FIELDS = ("YffR", "YffI", "YttR", "YttI", "YftR", "YftI", "YtfR", "YtfI",
                "rate_a", "line_from", "line_to", "fr_vm_bound", "to_vm_bound",
                "fr_va_bound", "to_va_bound", "line_mask")
+
+
+def arc_csr_idx(arc_bus: torch.Tensor, valid: torch.Tensor, nbus: int,
+                narcs: int) -> torch.Tensor:
+    """``arc_idx`` of the arc CSR, on the arcs' device: a stable sort of the
+    stacked rows by bus lists each bus's arcs in ascending row order, as
+    ``build_csr`` does; the rows that are not ``valid`` get the key
+    ``nbus`` and fall off the end. ``narcs`` is the number of valid rows
+    (the length of ``arc_idx``), passed in so nothing is read back."""
+    key = torch.where(valid, arc_bus, torch.full_like(arc_bus, nbus))
+    order = torch.sort(key, stable=True).indices[:narcs]
+    return order.to(torch.int32)
+
+
+def permute_lines(gd: GridData, ids: torch.Tensor) -> GridData:
+    """The grid with its line batch reordered by ``ids`` (line i of the
+    result is line ``ids[i]`` of ``gd``): every array of ``LINE_FIELDS``
+    moves, ``line_mask`` with it, so padded lines stay out wherever they
+    land. The arc CSR is derived again for the new order on the device:
+    ``arc_ptr`` counts the real arcs of each bus, which no permutation
+    changes, and ``arc_idx`` lists a bus's arcs in ascending new row order,
+    the order in which the plain version adds them."""
+    lines = {k: getattr(gd, k).index_select(0, ids) for k in LINE_FIELDS}
+    arc_bus = torch.cat([lines["line_from"], lines["line_to"]])
+    valid = torch.cat([lines["line_mask"], lines["line_mask"]]) > 0.5
+    return dataclasses.replace(
+        gd, **lines, arc_bus=arc_bus,
+        arc_idx=arc_csr_idx(arc_bus, valid, gd.nbus, gd.arc_idx.shape[0]))
 
 
 def tile_lines(gd: GridData, T: int) -> GridData:

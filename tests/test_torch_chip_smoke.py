@@ -23,12 +23,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_rehearsal_on_cpu(case9_path, capsys):
     data = opf_loaddata(case9_path, verbose=0)
     loads = load_time_series(chip_smoke.DEMAND9)
-    res = chip_smoke.run("cpu", data, data, loads, 3, case118_outer=2)
+    res = chip_smoke.run("cpu", data, data, loads, 3, case118_outer=2,
+                         case9_mixed_outer=2)
     out = capsys.readouterr().out
     for phase in ("1", "1b", "1c", "2", "2b", "2c", "2d", "3", "3b", "3c",
                   "3d", "3e", "3f", "3g", "3h", "4", "5", "6", "7", "8",
-                  "9a", "9b"):
+                  "9a", "9b", "10a", "10b"):
         assert f"phase {phase}:" in out
+    # mixed precision and line sorting at phase 4's configuration
+    assert res["main_mixed"]["outer"] == res["main"]["outer"]
+    assert ((res["main_sorted"]["outer"], res["main_sorted"]["cumul"])
+            == (res["main"]["outer"], res["main"]["cumul"]))
+    assert res["sort"]["scatter_rel"] <= 1e-13
+    assert "2 sorted rounds" in out
+    assert set(res["mixed"]) == {"kernel", "polar_kernel", "main",
+                                 "with line limits", "without line limits"}
+    assert set(res["sort"]["it1_periods"]) == {"ms", "ms_sorted"}
     # case118 at a cut depth, the checkpoint, and the mesh paths: one rank
     # (gloo here) bit-equal to phase 4, two ranks on the same counts
     assert res["case118"]["outer"] == 2

@@ -105,9 +105,10 @@ def test_cli_text_summary(case9_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--branch-backend", "pallas"],
                                   ["--bus-backend", "kr"],
-                                  ["--mixed-precision"]])
+                                  ["--branch-backend", "xla"]])
 def test_cli_rejects_tpu_flags(case9_path, flag, capsys):
-    """The JAX CLI's TPU back-end flags are unknown here: exit code 2."""
+    """The JAX CLI's TPU back-end flags are unknown here, even at their JAX
+    defaults: exit code 2. (``--mixed-precision`` is ported.)"""
     with pytest.raises(SystemExit) as e:
         build_parser().parse_args([case9_path] + flag)
     assert e.value.code == 2
@@ -119,6 +120,7 @@ def test_cli_rejects_tpu_flags(case9_path, flag, capsys):
     ["--solver", "rolling"],
     ["--solver", "mpacopf"],
     ["--solver", "rolling", "--load-prefix", DEMAND9, "--mesh", "2"],
+    ["--mixed-precision", "--fp32"],
 ])
 def test_cli_usage_errors(case9_path, argv, capsys):
     assert main([case9_path, "--device", "cpu"] + argv) == 2
@@ -129,12 +131,24 @@ def test_cli_defaults_match_the_jax_cli(case9_path):
     from exaadmm_tpu.__main__ import build_parser as jax_parser
     ours = vars(build_parser().parse_args([case9_path]))
     theirs = vars(jax_parser().parse_args([case9_path]))
-    dropped = {"branch_backend", "bus_backend", "mixed_precision"}
+    dropped = {"branch_backend", "bus_backend"}
     assert set(theirs) - set(ours) == dropped
     assert set(ours) - set(theirs) == {"device"}
     for k in set(ours) & set(theirs):
         assert ours[k] == theirs[k], k
     assert ours["device"] == "cuda"
+
+
+def test_cli_mixed_precision(case9_path, capsys):
+    """``--mixed-precision`` on the CPU: an fp64 solve with the branch batch
+    in fp32 reaches Solved on case9 (without line limits, the cheaper of
+    the two batches), within 1e-3 of the fp64 pin 5286.651807890947."""
+    rc = main([case9_path, "--device", "cpu", "--verbose", "0", "--json",
+               "--outer-iterlim", "30", "--no-linelimit",
+               "--mixed-precision"])
+    summary = _last_json(capsys)
+    assert rc == 0 and summary["status"] == "Solved"
+    assert summary["objval"] == pytest.approx(5286.651807890947, rel=1e-3)
 
 
 def test_cli_default_device_needs_a_card(case9_path):

@@ -117,8 +117,8 @@ def test_cpu_wrappers_launch_no_kernel(case9_path):
     from exaadmm_tpu_torch.utils.grid_data import build_grid_data
     from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
 
-    bus_cuda.launches = tron_cuda.launches = tron_cuda.ramp_launches = 0
-    tron_cuda.qpsub_launches = tron_cuda.polar_launches = 0
+    bus_cuda.launches = 0
+    tron_cuda.launches.clear()
     exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
                                   inner_iterlim=2, verbose=0, device="cpu")
     exaadmm_tpu_torch.solve_acopf(case9_path, outer_iterlim=1,
@@ -136,6 +136,51 @@ def test_cpu_wrappers_launch_no_kernel(case9_path):
         pg=data.Pg0, qg=data.Qg0, vm=data.Vm, va=data.Va))
     exaadmm_tpu_torch.solve_qpsub(case9_path, *[qp[k] for k in QP_KEYS],
                                   outer_iterlim=2, verbose=0, device="cpu")
-    assert bus_cuda.launches == 0 and tron_cuda.launches == 0
-    assert tron_cuda.ramp_launches == 0 and tron_cuda.qpsub_launches == 0
-    assert tron_cuda.polar_launches == 0
+    assert bus_cuda.launches == 0 and tron_cuda.launches == {}
+    assert all(tron_cuda.instance_launches(inst) == 0
+               for inst in (tron_cuda.BRANCH, tron_cuda.RAMP,
+                            tron_cuda.QPSUB, tron_cuda.POLAR))
+
+
+def test_options_match_the_jax_package():
+    """The options of ``Parameters``, ``solve_acopf`` and ``build_model`` in
+    the two packages. The JAX-only names are exactly ROADMAP's "Do not
+    port" list (TPU code paths, the from-bus order that XLA's sorted
+    scatter wants, and tolerances no solve reads); the
+    port-only names are ``time_hooks``, ``device`` and ``data``. A new
+    option in either package fails this test until the other has it or
+    the lists here (and ROADMAP's) say why not."""
+    import dataclasses
+    import inspect
+
+    import exaadmm_tpu
+    from exaadmm_tpu.models.acopf import model as JM
+    from exaadmm_tpu_torch.models.acopf import model as TM
+
+    def names(f):
+        return set(inspect.signature(f).parameters)
+
+    ours = {f.name for f in dataclasses.fields(exaadmm_tpu_torch.Parameters)}
+    theirs = {f.name for f in dataclasses.fields(exaadmm_tpu.Parameters)}
+    jax_only = {
+        "Parameters": theirs - ours,
+        "solve_acopf": (names(exaadmm_tpu.solve_acopf)
+                        - names(exaadmm_tpu_torch.solve_acopf)),
+        "build_model": names(JM.build_model) - names(TM.build_model),
+    }
+    assert jax_only == {
+        "Parameters": {"branch_two_pass", "branch_pass1_cap",
+                       "branch_tail_tiles", "pallas_pass1_tile",
+                       "tron_trial_unroll", "branch_backend", "pallas_tile",
+                       "bus_backend", "ABSTOL", "RELTOL", "DUAL_TOL"},
+        "solve_acopf": {"branch_backend", "pallas_tile", "bus_backend",
+                        "backend"},
+        "build_model": {"sort_lines_static"},
+    }
+    assert ours - theirs == {"time_hooks"}
+    assert (names(exaadmm_tpu_torch.solve_acopf)
+            - names(exaadmm_tpu.solve_acopf)) == {"device", "data"}
+    assert names(TM.build_model) - names(JM.build_model) == {"device"}
+    for f in ("sort_lines", "mixed_precision"):
+        assert (getattr(exaadmm_tpu_torch.Parameters(), f)
+                == getattr(exaadmm_tpu.Parameters(), f) is False)

@@ -1,0 +1,210 @@
+"""Mixed precision (an fp32 branch batch inside an fp64 solve) against the
+JAX package's ``Parameters.mixed_precision``.
+
+Tolerances:
+- ``branch_update`` at the first inner iteration, prox targets perturbed by
+  N(0, 0.05) from a numpy seed, 3 padded lanes: both packages run the batch
+  in fp32 (the port's plain version, JAX's XLA loop), whose sin/cos and
+  fused multiply-adds round differently by ulps, and at fp32's tolerances
+  (gtol 4.8e-6) such a difference moves where a lane stops and may flip a
+  TRON or ALM decision. On case9 every lane takes the same steps and u
+  agrees within 5e-5; on the synthetic 300-bus batch >= 80 % of the lanes
+  take the same steps with line limits (85 % measured) and >= 95 % without
+  (97 %), u within 1e-4 on those lanes and 1e-3 on all (1.8e-5, 7.1e-5 and
+  1.2e-4 measured). The state and the stats come back fp64.
+- ``lane_steps`` of an fp64 batch: exactly JAX's, 0 on the padded lanes.
+- ``solve_acopf(case9, mixed_precision=True)`` without line limits at
+  outer_eps 2e-4: both Solved, the same outer count, cumul within 2 % and
+  the objectives within 1e-4 relative of each other (20 / 993 against 20 /
+  991, 1.6e-5 measured: the packages' fp32 rounding differs, and the ADMM
+  iteration carries it), both within 1e-3 of the fp64 solve. With line
+  limits, 6 outer iterations: the same outer count, cumul within 2 % and
+  the objective within 1e-4 relative (316 against 315 inner, 2e-5
+  measured; to Solved, 20 / 983 against 20 / 1000 and 1.8e-5, a minute of
+  CPU). The JAX package's own test (tests/test_solve_acopf.py::
+  test_mixed_precision_mode) holds case9 with line limits at outer_eps
+  2e-5 to Solved; the port's CPU run misses there. Both packages follow
+  one path (mismatch over tolerance within 2 % of each other over outers
+  15-21, beta raised at 22 in both); at outer 24 the JAX package passes
+  by 0.9 % and the port misses by 2.9 %. Which side it lands on is fp32
+  rounding: without line limits the JAX package is the one that misses
+  at 24, and the port on the card passes at 24 with and without line
+  limits (tests/torch_mixed_trace.py prints these traces). After a miss whose
+  ||z|| contraction exceeds theta, beta rises to 2.16e5, where neither
+  package's mixed solve with line limits gets primres under eps_pri
+  again (the JAX package at outer_eps 1e-5 runs to its limit as the port
+  does at 2e-5). So the tests here use 2e-4; ROADMAP's Queue 3 records
+  the divergence.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import exaadmm_tpu
+import exaadmm_tpu_torch as E
+from exaadmm_tpu.models.acopf import branch as JB
+from exaadmm_tpu.models.acopf import model as JM
+from exaadmm_tpu.utils.environment import Parameters as JParameters
+from exaadmm_tpu.utils.opfdata import opf_loaddata as jax_opf_loaddata
+from exaadmm_tpu.utils.synthetic import synthetic_case as jax_synthetic_case
+from exaadmm_tpu_torch.interface import solve_acopf as SA
+from exaadmm_tpu_torch.models.acopf import branch as TB
+from exaadmm_tpu_torch.models.acopf import model as TM
+from exaadmm_tpu_torch.utils.environment import AdmmEnv, Parameters
+from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
+from exaadmm_tpu_torch.utils.synthetic import synthetic_case
+
+from .test_torch_threads import one_torch_thread  # noqa: F401
+
+PAD = 4
+SOLVE_KW = dict(rho_pq=4e2, rho_va=4e4, outer_eps=2e-4, outer_iterlim=30,
+                verbose=0)
+
+
+def _states(case, use_linelimit, mixed, seed=0, sigma=0.05):
+    """The first inner iteration's state and grid on both packages, padded
+    to a multiple of 4 lanes, the real lines' prox targets perturbed by the
+    same numpy noise: ((port sol, grid, par), (JAX sol, grid, par))."""
+    if case == "synth300":
+        tdata, jdata = synthetic_case(300, seed=3), jax_synthetic_case(300, seed=3)
+    else:
+        from os.path import dirname, join
+        path = join(dirname(dirname(__file__)), "data", case + ".m")
+        tdata = opf_loaddata(path, verbose=0)
+        jdata = jax_opf_loaddata(path, verbose=0)
+    tpar = Parameters(verbose=0, mixed_precision=mixed)
+    jpar = JParameters(verbose=0, mixed_precision=mixed)
+    tmodel = TM.build_model(tdata, tpar, use_linelimit=use_linelimit,
+                            pad_lines_to=PAD)
+    jmodel = JM.build_model(jdata, jpar, use_linelimit=use_linelimit,
+                            pad_lines_to=PAD)
+    tsol = TM.init_solution(tmodel, 4e2, 4e4)
+    jsol = JM.init_solution(jmodel, 4e2, 4e4)
+    noise = (np.random.default_rng(seed).normal(0, sigma, tsol.v.line.shape)
+             * tmodel.grid.line_mask.numpy()[:, None])
+    tsol = tsol.replace(v=tsol.v.replace(line=tsol.v.line
+                                         + torch.as_tensor(noise)))
+    jsol = jsol.replace(v=jsol.v.replace(line=jsol.v.line
+                                         + jnp.asarray(noise)))
+    return (tsol, tmodel.grid, tpar), (jsol, jmodel.grid, jpar)
+
+
+@pytest.mark.parametrize("case,use_linelimit,min_agree,tol_same,tol_all", [
+    ("case9", True, 1.0, 5e-5, 5e-5),
+    ("case9", False, 1.0, 5e-5, 5e-5),
+    ("synth300", True, 0.80, 1e-4, 1e-3),
+    ("synth300", False, 0.95, 1e-4, 1e-3),
+])
+def test_mixed_branch_update_matches_jax(case, use_linelimit, min_agree,
+                                         tol_same, tol_all):
+    (ts, tg, tp), (js, jg, jp) = _states(case, use_linelimit, True)
+    tu, talm, tst = TB.branch_update(ts, tg, tp, 1,
+                                     use_linelimit=use_linelimit)
+    ju, jalm, jst = JB.branch_update(js, jg, jp, 1,
+                                     use_linelimit=use_linelimit)
+    for t in (tu, talm.lam1, talm.lam2, talm.mu, tst["max_cviol"],
+              tst["avg_minor_it"]):
+        assert t.dtype == torch.float64
+    assert bool(torch.isfinite(tu).all())
+    same = tst["lane_steps"].numpy() == np.asarray(jst["lane_steps"])
+    n_diff = int((~same).sum())
+    print(f"{case}: {n_diff} of {same.size} lanes differ in steps")
+    assert same.mean() >= min_agree, n_diff
+    du = np.abs(tu.numpy() - np.asarray(ju)).max(axis=1)
+    assert du[same].max() <= tol_same, du[same].max()
+    assert du.max() <= tol_all, du.max()
+    # the padded lanes keep their zero state and take no step
+    real = tg.line_mask.numpy() > 0.5
+    assert np.all(tu.numpy()[~real] == 0.0)
+    assert np.all(tst["lane_steps"].numpy()[~real] == 0)
+    if not use_linelimit:
+        assert talm is ts.branch_alm
+
+
+def test_mixed_branch_update_launches_the_f32_batch(monkeypatch):
+    """The mixed path hands the TRON wrapper fp32, contiguous inputs and
+    fp32 tolerances, and an fp64 state back to the caller."""
+    from exaadmm_tpu_torch.ops import tron_cuda
+    seen = {}
+    real = tron_cuda.tron_alm_branch
+
+    def spy(x0, xl, xu, params, lam0, mu0, **kw):
+        seen["dtypes"] = {t.dtype for t in (x0, xl, xu, lam0, mu0,
+                                            *params.values())}
+        seen["contiguous"] = all(t.is_contiguous()
+                                 for t in (x0, xl, xu, lam0, mu0))
+        seen["gtol"] = kw["gtol"]
+        return real(x0, xl, xu, params, lam0, mu0, **kw)
+
+    monkeypatch.setattr(tron_cuda, "tron_alm_branch", spy)
+    (ts, tg, tp), _ = _states("case9", True, True)
+    tu, _, _ = TB.branch_update(ts, tg, tp, 1)
+    assert seen["dtypes"] == {torch.float32}
+    assert seen["contiguous"]
+    assert seen["gtol"] == TB.branch_tolerances(tp, torch.float32)["gtol"]
+    assert seen["gtol"] > TB.branch_tolerances(tp, torch.float64)["gtol"]
+    assert tu.dtype == torch.float64
+
+
+@pytest.mark.parametrize("use_linelimit", [True, False])
+def test_lane_steps_match_jax(use_linelimit):
+    (ts, tg, tp), (js, jg, jp) = _states("case9", use_linelimit, False)
+    _, _, tst = TB.branch_update(ts, tg, tp, 1, use_linelimit=use_linelimit)
+    _, _, jst = JB.branch_update(js, jg, jp, 1, use_linelimit=use_linelimit)
+    steps = tst["lane_steps"].numpy()
+    np.testing.assert_array_equal(steps, np.asarray(jst["lane_steps"]))
+    assert steps.shape == (12,)
+    assert (steps[:9] > 0).all() and (steps[9:] == 0).all()
+
+
+@pytest.mark.parametrize("use_linelimit,outer_iterlim", [(False, 30),
+                                                         (True, 6)])
+def test_mixed_solve_matches_jax(case9_path, use_linelimit, outer_iterlim):
+    kw = dict(SOLVE_KW, use_linelimit=use_linelimit,
+              outer_iterlim=outer_iterlim)
+    got = E.solve_acopf(case9_path, mixed_precision=True, device="cpu", **kw)
+    ref = exaadmm_tpu.solve_acopf(case9_path, mixed_precision=True, **kw).info
+    info = got.info
+    print(f"port {info.status} {info.outer} / {info.cumul} / "
+          f"{info.objval!r}; JAX {ref.status} {ref.outer} / {ref.cumul} / "
+          f"{ref.objval!r}")
+    assert info.status == ref.status
+    assert info.outer == ref.outer
+    assert abs(info.cumul - ref.cumul) <= 0.02 * ref.cumul
+    assert info.objval == pytest.approx(ref.objval, rel=1e-4)
+    if outer_iterlim == 30:
+        ref64 = exaadmm_tpu.solve_acopf(case9_path, **kw).info
+        assert info.status == "Solved"
+        for obj in (info.objval, ref.objval):
+            assert obj == pytest.approx(ref64.objval, rel=1e-3)
+    assert got.solution.u.line.dtype == torch.float64
+    assert got.solution.branch_alm.mu.dtype == torch.float64
+    assert got.env.params.mixed_precision
+
+
+def test_mixed_needs_fp64_in_both_packages(case9_path):
+    with pytest.raises(ValueError, match="needs an fp64 solve"):
+        E.solve_acopf(case9_path, mixed_precision=True, dtype=torch.float32,
+                      device="cpu", verbose=0)
+    with pytest.raises(ValueError, match="needs an fp64 solve"):
+        exaadmm_tpu.solve_acopf(case9_path, mixed_precision=True,
+                                dtype=jnp.float32, verbose=0)
+
+
+def test_from_env_carries_mixed_precision(case9_path, monkeypatch):
+    seen = {}
+    monkeypatch.setattr(SA, "solve_acopf",
+                        lambda case, **kw: seen.update(kw, case=case))
+    par = Parameters(verbose=0, mixed_precision=True)
+    env = AdmmEnv(case=case9_path, data=None, initial_rho_pq=4e2,
+                  initial_rho_va=4e4, params=par)
+    SA.solve_acopf_from_env(env, device="cpu")
+    assert seen["mixed_precision"] is True
+    assert seen["case"] == case9_path and seen["device"] == "cpu"
+    SA.solve_acopf_from_env(dataclasses.replace(
+        env, params=Parameters(verbose=0)))
+    assert seen["mixed_precision"] is False

@@ -35,6 +35,30 @@ def acopf(mesh, dev, case, kw):
                 nline_padded=res.model.grid.nline_padded)
 
 
+def acopf_sorted(mesh, dev, case, kw):
+    """``Parameters(**kw)`` (``sort_lines`` among them) through the model and
+    the ADMM loop, as ``solve_acopf`` has no ``sort_lines``; also counts the
+    rounds that sorted this rank's lines."""
+    rounds = []
+    reorder = M.ModelAcopf.with_line_order
+
+    def counted(self, ids):
+        rounds.append(ids.shape[0])
+        return reorder(self, ids)
+
+    M.ModelAcopf.with_line_order = counted
+    try:
+        data = opf_loaddata(case, verbose=0)
+        model = M.build_model(data, Parameters(**kw), device=dev,
+                              pad_lines_to=1 if mesh is None else mesh.size)
+        sol, info = sharding.run_sharded(
+            admm_two_level, model, M.init_solution(model, 4e2, 4e4), mesh)
+    finally:
+        M.ModelAcopf.with_line_order = reorder
+    return dict(_info(info), line=sol.u.line.numpy(),
+                sorted_rounds=len(rounds))
+
+
 def mpacopf(mesh, dev, case, kw):
     """Multi-period, sharded through the model and the ADMM loop (there is no
     ``mesh`` on ``solve_mpacopf``, as in the JAX package)."""
