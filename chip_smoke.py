@@ -4,12 +4,15 @@
     python3 chip_smoke.py [--profile] [--solve]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or /usr/local/cuda) and
-``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the five
+``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the six
 kernels of the main paths from ``exaadmm_tpu_torch/csrc`` (one nvcc process
 per source, all at once) and runs, in order:
 
 0. the card's name and power limit, and the kernels' build (seconds and the
-   ``-Xptxas -v`` report);
+   ``-Xptxas -v`` report); the CUDA driver's version, which must have
+   conditional graph nodes (12.4 or later), and torch's
+   ``CUDAGraph(keep_graph=True)`` and ``raw_cuda_graph`` (the fused
+   drivers raise without them);
 1. the bus-scatter kernel against its plain version (``index_add_``) on the
    synthetic 9241-bus grid, fp64 and fp32: max relative difference per
    channel (difference over the channel's largest magnitude) <= 1e-13 in
@@ -148,25 +151,48 @@ per source, all at once) and runs, in order:
    solve) in canonical order and sorted by its lanes' steps; then the same
    sort on phase 2's 15,710-lane batch and on the 39,016-lane multi-period
    batch at it1, the sorted run bit-identical to the unsorted one and to
-   the plain version.
+   the plain version;
+11. the fused drivers (every solve at verbose 0 above ran them): first the
+   set-condition kernel of ``csrc/graph_loop.cu`` against its plain
+   version, a loop of 2000 trips run by the graph and by the host (both
+   stop at 2000; device ms per trip, the kernel's own from the profiler,
+   the host loop's per trip); then, on the configurations of phases 4-8,
+   10a's mixed solve and the case9 pins of phase 3 (3, 3b, 3c, 3d, both of
+   3e, 3f), the entry point's fused solve against its host loop: the same
+   status, outer, cumul and info scalars, every solution tensor
+   bit-identical, the host loop's counted launches of every kernel plus
+   the warm-up's one pass of the inner body, and 1 + 2 outer + cumul
+   set-condition launches (1 + iterations one-level); inner it/s of both,
+   the wall time of both entry-point calls (the fused one's with its
+   build), the graph's build ms and its pool MiB.
+
+Every fused solve on the card starts (the buffers' reset and the graph's
+launch) under ``torch.cuda.set_sync_debug_mode("error")``
+(``graph_loop.no_syncs``), so a synchronization before the final
+read-back fails its phase.
 
 The kernels' launch counters are zeroed just before phases 4, 5, 6, 7, 8,
 9a and 9b's full-size run (there on rank 0, which reports them), 10a's
 mixed solve and 10b's sorted solve at phase 4's configuration, and read just
 after each; the ``launches`` of a kernel in the JSON line are the sum over
-those nine runs.
+those nine runs. Phases 4-8 and 10a run the fused driver: a wrapper called
+while its loop body is captured counts on the device, once per replay, and
+the solve reads those counters back with its scalars; the warm-up before
+the capture counts as any launch (``ops/graph_loop.py``). 9a, 9b and 10b
+run the host loop.
 
 ``--profile`` adds a breakdown of one iteration of the configurations of
 phases 4 to 8 (host time per hook, device time by kernel, idle share) and
 ``utils/profiling.py::profile_iteration``'s device time per hook of phase
-4's model;
+4's model, then each of those phases' fused solve from its launch to its
+last device activity (device busy time and idle share per iteration);
 ``--solve`` adds the time to tolerance of phase 4's configuration.
 
 Each phase prints one line of numbers; any failure raises, so the script
 exits non-zero and prints no result. The line before the last is one JSON
 object with each kernel's numbers (phase 1's fp64 scatter and phase 2's,
-2b's, 2c's and 2d's fp64 batches): ``ms`` and ``device_ms`` the device time per
-launch, ``enqueue_ms`` the host's time per call, ``plain_ms`` the plain
+2b's, 2c's and 2d's fp64 batches, and phase 11's set-condition loop):
+``ms`` and ``device_ms`` the device time per launch, ``enqueue_ms`` the host's time per call, ``plain_ms`` the plain
 version's, ``bound_ms`` and ``bound_by`` the least time for the bytes and
 operations of that launch, and ``library_ms`` ``index_add_``'s device time
 for the scatter (null for the TRON instances, which no library call
@@ -176,6 +202,9 @@ plain XLA, since no TPU kernel does); the last line is ``{"ok": true, "device": 
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import importlib
 import json
 import os
 import subprocess
@@ -231,6 +260,10 @@ KERNEL_SOURCES = {
     "tron_alm_polar": ("exaadmm_tpu_torch/csrc/tron_alm_polar.cu",
                        "exaadmm_tpu/models/acopf/branch.py:480 "
                        "(tron_batched; no Pallas)"),
+    # no TPU kernel: the fused drivers' loops, which XLA compiles
+    "graph_loop": ("exaadmm_tpu_torch/csrc/graph_loop.cu",
+                   "exaadmm_tpu/algorithms/admm_two_level.py:387 "
+                   "(lax.while_loop; no Pallas)"),
 }
 
 
@@ -246,22 +279,38 @@ def _check(cond: bool, what: str):
 
 def _zero_launches():
     """Set every kernel's launch count to 0."""
-    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
+    from exaadmm_tpu_torch.ops import bus_cuda, graph_loop, tron_cuda
     tron_cuda.launches.clear()
     bus_cuda.launches = 0
+    graph_loop.launches = 0
 
 
 def _launches() -> dict:
-    """Every kernel's launch count, by kernel name."""
-    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
+    """Every kernel's launch count, by kernel name; ``graph_loop`` counts
+    the fused loops' set-condition kernel (1 + 2 outer + cumul in a
+    two-level solve, 1 + iterations in a one-level one)."""
+    from exaadmm_tpu_torch.ops import bus_cuda, graph_loop, tron_cuda
     n = {inst.name: tron_cuda.instance_launches(inst)
          for inst in (tron_cuda.BRANCH, tron_cuda.RAMP, tron_cuda.QPSUB,
                       tron_cuda.POLAR)}
-    return dict(n, bus_scatter=bus_cuda.launches)
+    return dict(n, bus_scatter=bus_cuda.launches,
+                graph_loop=graph_loop.launches)
+
+
+# a solve that builds a fused solver runs its loop bodies once before the
+# capture (``GraphLoop``'s warm-up, on a copy of the state), so on the card
+# each kernel of the inner iteration launches once more than the solve's
+# iterations; the host loop has no warm-up
+WARMUP = 1
+
+
+def _loop_trips(info, two_level: bool = True) -> int:
+    """The set-condition launches a fused solve of ``info`` must count."""
+    return 1 + (2 * info.outer + info.cumul if two_level else info.cumul)
 
 
 def phase0_device(dev, on_card: bool) -> dict:
-    from exaadmm_tpu_torch.ops import _build, bus_cuda, tron_cuda
+    from exaadmm_tpu_torch.ops import _build, bus_cuda, graph_loop, tron_cuda
     info = {"name": str(dev)}
     if on_card:
         smi = subprocess.run(
@@ -281,6 +330,14 @@ def phase0_device(dev, on_card: bool) -> dict:
         tron_cuda.library(tron_cuda.QPSUB)
         tron_cuda.library(tron_cuda.POLAR)
         bus_cuda.library()
+        # keep_graph, raw_cuda_graph and a driver with conditional nodes
+        graph_loop.check_support()
+        version = ctypes.c_int(0)
+        graph_loop.library().driver_version(ctypes.byref(version))
+        info["driver"] = version.value
+        print(f"phase 0: CUDA driver {version.value}, "
+              f"torch.cuda.CUDAGraph(keep_graph=True) and raw_cuda_graph "
+              f"present")
         print(f"phase 0: built {len(KERNEL_SOURCES)} kernels in parallel in "
               f"{time.perf_counter() - t0:.1f} s")
         for name in KERNEL_SOURCES:
@@ -816,9 +873,9 @@ def phase3_case9(dev, on_card: bool) -> dict:
     _check(abs(info.cumul - PIN_CUMUL) <= 0.02 * PIN_CUMUL,
            f"case9: cumul {info.cumul}")
     if on_card:
-        _check(launched['tron_alm_branch'] == info.cumul,
+        _check(launched['tron_alm_branch'] == info.cumul + WARMUP,
                f"case9: {launched['tron_alm_branch']} TRON launches for "
-               f"{info.cumul} inner iterations")
+               f"{info.cumul} inner iterations and the warm-up")
         _check(launched['bus_scatter'] >= info.cumul,
                f"case9: {launched['bus_scatter']} bus launches")
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
@@ -860,11 +917,13 @@ def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
            f"{label}: u not finite")
     if on_card:
         lane = "tron_alm_branch" if use_linelimit else "tron_alm_polar"
-        _check(launches[lane] == info.cumul
+        _check(launches[lane] == info.cumul + WARMUP
                and sum(launches.values()) == launches[lane]
-               + launches["bus_scatter"],
+               + launches["bus_scatter"] + launches["graph_loop"],
                f"{label}: TRON launches {launches}")
-        _check(launches["bus_scatter"] == 2 * info.cumul,
+        _check(launches["graph_loop"] == _loop_trips(info),
+               f"{label}: loop launches {launches}")
+        _check(launches["bus_scatter"] == 2 * (info.cumul + WARMUP),
                f"{label}: bus launches {launches}")
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, peak=peak, outer=info.outer,
@@ -902,8 +961,8 @@ def phase3g_case118(dev, on_card: bool, outer_iterlim: int = 25) -> dict:
                <= 1e-4 * CASE118_REFERENCE_OBJ,
                f"case118: obj {info.objval!r} against the reference")
     if on_card:
-        _check(launches["tron_alm_branch"] == info.cumul
-               and launches["bus_scatter"] == 2 * info.cumul,
+        _check(launches["tron_alm_branch"] == info.cumul + WARMUP
+               and launches["bus_scatter"] == 2 * (info.cumul + WARMUP),
                f"case118: launches {launches} for {info.cumul} inner "
                f"iterations")
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
@@ -1114,7 +1173,7 @@ def phase3d_case9_polar(dev, on_card: bool) -> dict:
            f"case9 polar: cumul {info.cumul}")
     _check(info.max_cviol == 0.0, f"case9 polar: cviol {info.max_cviol}")
     if on_card:
-        _check(launches["tron_alm_polar"] == info.cumul
+        _check(launches["tron_alm_polar"] == info.cumul + WARMUP
                and launches["tron_alm_branch"] == 0,
                f"case9 polar: launches {launches} for {info.cumul} inner "
                f"iterations")
@@ -1148,12 +1207,12 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
     _check(rel <= 1e-6, f"case9 mp: obj {info.objval}")
     _check(res.err_ramp <= 1e-3, f"case9 mp: err_ramp {res.err_ramp}")
     if on_card:
-        _check(launched['tron_alm_branch'] == info.cumul
-               and launched['tron_alm_ramp'] == info.cumul,
+        _check(launched['tron_alm_branch'] == info.cumul + WARMUP
+               and launched['tron_alm_ramp'] == info.cumul + WARMUP,
                f"case9 mp: {launched['tron_alm_branch']} branch and "
                f"{launched['tron_alm_ramp']} ramp launches for {info.cumul} "
                f"inner iterations")
-        _check(launched['bus_scatter'] == 2 * info.cumul,
+        _check(launched['bus_scatter'] == 2 * (info.cumul + WARMUP),
                f"case9 mp: {launched['bus_scatter']} bus launches")
 
     # one period: no ramp batch, so no ramp launch
@@ -1170,7 +1229,7 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
            "case9 x 1 period: u not finite")
     if on_card:
         _check(launched['tron_alm_ramp'] == 0
-               and launched['tron_alm_branch'] == one.info.cumul,
+               and launched['tron_alm_branch'] == one.info.cumul + WARMUP,
                f"case9 x 1 period: {launched['tron_alm_branch']} branch "
                f"and "
                f"{launched['tron_alm_ramp']} ramp launches for "
@@ -1211,12 +1270,13 @@ def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
     _check(bool(torch.isfinite(res.solution.acopf.u.line).all()),
            "multi-period path: u not finite")
     if on_card:
-        _check(launches["tron_alm_branch"] == info.cumul
-               and launches["tron_alm_ramp"] == info.cumul
+        _check(launches["tron_alm_branch"] == info.cumul + WARMUP
+               and launches["tron_alm_ramp"] == info.cumul + WARMUP
                and launches["tron_alm_qpsub"] == 0,
                f"multi-period path: TRON launches {launches}")
-        _check(launches["bus_scatter"] == 2 * info.cumul,
-               f"multi-period path: bus launches {launches}")
+        _check(launches["bus_scatter"] == 2 * (info.cumul + WARMUP)
+               and launches["graph_loop"] == _loop_trips(info),
+               f"multi-period path: bus and loop launches {launches}")
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, err_ramp=res.err_ramp, peak=peak)
 
@@ -1265,10 +1325,10 @@ def phase3c_case9_qpsub(dev, on_card: bool) -> dict:
     _check(lam.shape == (4, 9), "case9 QP: lambda shape")
     _check(bool(np.all(lam[2:] <= 1e-12)), "case9 QP: lambda[2:] > 1e-12")
     if on_card:
-        _check(launched['tron_alm_qpsub'] == info.cumul,
+        _check(launched['tron_alm_qpsub'] == info.cumul + WARMUP,
                f"case9 QP: {launched['tron_alm_qpsub']} qpsub launches for "
-               f"{info.cumul} iterations")
-        _check(launched['bus_scatter'] == 2 * info.cumul,
+               f"{info.cumul} iterations and the warm-up")
+        _check(launched['bus_scatter'] == 2 * (info.cumul + WARMUP),
                f"case9 QP: {launched['bus_scatter']} bus launches")
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 seconds=secs)
@@ -1309,12 +1369,13 @@ def phase6_qpsub(dev, data, on_card: bool) -> dict:
     for k, v in res.sqp_out.items():
         _check(bool(np.isfinite(v).all()), f"qpsub path: sqp_out {k}")
     if on_card:
-        _check(launches["tron_alm_qpsub"] == info.cumul
+        _check(launches["tron_alm_qpsub"] == info.cumul + WARMUP
                and launches["tron_alm_branch"] == 0
                and launches["tron_alm_ramp"] == 0,
                f"qpsub path: TRON launches {launches}")
-        _check(launches["bus_scatter"] == 2 * info.cumul,
-               f"qpsub path: bus launches {launches}")
+        _check(launches["bus_scatter"] == 2 * (info.cumul + WARMUP)
+               and launches["graph_loop"] == _loop_trips(info, False),
+               f"qpsub path: bus and loop launches {launches}")
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, peak=peak)
 
@@ -1360,8 +1421,9 @@ def phase3e_case9_mpec(dev, on_card: bool) -> dict:
         _near_pin(f"case9 MPEC {label}", info, outer, cumul, obj)
         if on_card:
             per_it = 3 if extra else 2
-            _check(launches["tron_alm_branch"] == info.cumul
-                   and launches["bus_scatter"] == per_it * info.cumul,
+            _check(launches["tron_alm_branch"] == info.cumul + WARMUP
+                   and launches["bus_scatter"]
+                   == per_it * (info.cumul + WARMUP),
                    f"case9 MPEC {label}: launches {launches} for "
                    f"{info.cumul} inner iterations")
         out[label] = dict(outer=info.outer, cumul=info.cumul,
@@ -1393,9 +1455,10 @@ def phase3f_case9_rolling_projection(dev, on_card: bool) -> dict:
         _near_pin(f"case9 rolling period {t + 1}", info, outer, cumul, obj)
     total = sum(i.cumul for i in infos)
     if on_card:
-        _check(launches["tron_alm_branch"] == total,
+        # one fused solver for the three periods: one warm-up
+        _check(launches["tron_alm_branch"] == total + WARMUP,
                f"case9 rolling: launches {launches} for {total} inner "
-               f"iterations")
+               f"iterations and the warm-up")
 
     res = E.solve_acopf(CASE9, rho_pq=4e2, rho_va=4e4, outer_eps=2e-5,
                         outer_iterlim=25, use_projection=True, verbose=0,
@@ -1454,9 +1517,11 @@ def phase7_mpec(dev, data, on_card: bool) -> dict:
            and bool(torch.isfinite(res.solution.u.sto).all()),
            "MPEC path: u not finite")
     if on_card:
-        _check(launches["tron_alm_branch"] == info.cumul
-               and launches["bus_scatter"] == 3 * info.cumul
-               and sum(launches.values()) == 4 * info.cumul,
+        _check(launches["tron_alm_branch"] == info.cumul + WARMUP
+               and launches["bus_scatter"] == 3 * (info.cumul + WARMUP)
+               and launches["graph_loop"] == _loop_trips(info)
+               and sum(launches.values()) == 4 * (info.cumul + WARMUP)
+               + launches["graph_loop"],
                f"MPEC path: launches {launches}")
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, peak=peak, nstorage=nsto)
@@ -1574,9 +1639,10 @@ def phase10a_mixed(dev, data, on_card: bool, base: dict,
     _check(info.outer == base["outer"], f"mixed path: outer {info.outer}")
     _check(rel <= 1e-3, f"mixed path: obj {info.objval!r}")
     if on_card:
-        _check(entries.get("tron_alm_branch_f32", 0) == info.cumul
+        _check(entries.get("tron_alm_branch_f32", 0)
+               == info.cumul + WARMUP
                and "tron_alm_branch_f64" not in entries
-               and launches["bus_scatter"] == 2 * info.cumul,
+               and launches["bus_scatter"] == 2 * (info.cumul + WARMUP),
                f"mixed path: launches {entries} {launches}")
     out["main"] = dict(launches=launches, rate=rate, outer=info.outer,
                        cumul=info.cumul, obj=info.objval)
@@ -1604,7 +1670,7 @@ def phase10a_mixed(dev, data, on_card: bool, base: dict,
             _check(rel <= 1e-3, f"case9 mixed {label}: obj {info.objval!r}")
         if on_card:
             entry = "tron_alm_branch_f32" if limits else "tron_alm_polar_f32"
-            _check(entries == {entry: info.cumul},
+            _check(entries == {entry: info.cumul + WARMUP},
                    f"case9 mixed {label}: launches {entries}")
         out[label] = dict(status=info.status, outer=info.outer,
                           cumul=info.cumul, obj=info.objval)
@@ -1779,6 +1845,318 @@ def phase10b_sort(dev, data, mp_data, mp_loads, T: int, on_card: bool,
     return out
 
 
+@contextlib.contextmanager
+def _host_loop():
+    """The entry points with their host loops at verbose 0: phase 11's
+    reference runs (each interface module's driver choice, swapped)."""
+    from exaadmm_tpu_torch.algorithms import admm_one_level, admm_two_level
+    saved = []
+    for name in ("solve_acopf", "solve_acopf_rolling", "solve_mpacopf",
+                 "solve_mpec", "solve_qpsub"):
+        mod = importlib.import_module(f"exaadmm_tpu_torch.interface.{name}")
+        if name == "solve_qpsub":
+            attr, host = "one_level_driver", admm_one_level.admm_one_level
+        else:
+            attr, host = "two_level_driver", admm_two_level.admm_two_level
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, lambda model, mesh=None, _host=host: _host)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+_INFO_FIELDS = ("status", "outer", "inner", "cumul", "objval", "auglag",
+                "primres", "dualres", "mismatch", "norm_z_curr",
+                "norm_z_prev", "max_cviol", "eps_pri")
+
+
+def _fused_pair(dev, label: str, call, periods, on_card: bool,
+                two_level: bool = True) -> dict:
+    """``call()`` (an entry point at verbose 0) with the fused driver, then
+    in ``_host_loop``: the same status, counts and info scalars, every
+    solution tensor bit-identical, and on the card the host loop's counted
+    launches of every kernel plus the warm-up's one pass of the inner body
+    (``WARMUP``), with the fused run's set-condition launches besides.
+    ``periods(res)`` gives a result's (info, solution or None) pairs, whose
+    first info is the call that built the fused solver."""
+    from exaadmm_tpu_torch.algorithms.carry import leaves
+
+    _sync(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    fused = periods(call())
+    _sync(dev)
+    wall_f = time.perf_counter() - t0
+    lf = _launches()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _host_loop():
+        host = periods(call())
+    _sync(dev)
+    wall_h = time.perf_counter() - t0
+    lh = _launches()
+    bits = 0
+    for (i_f, s_f), (i_h, s_h) in zip(fused, host, strict=True):
+        for k in _INFO_FIELDS:
+            _check(getattr(i_f, k) == getattr(i_h, k),
+                   f"phase 11 {label}: {k} fused {getattr(i_f, k)!r} host "
+                   f"{getattr(i_h, k)!r}")
+        if s_f is not None:
+            pairs = list(zip(leaves(s_f), leaves(s_h), strict=True))
+            for n, (a, b) in enumerate(pairs):
+                _check(a.dtype == b.dtype and bool(torch.equal(a, b)),
+                       f"phase 11 {label}: solution tensor {n} differs")
+            bits += len(pairs)
+    cumul = sum(i.cumul for i, _ in fused)
+    trips = sum(_loop_trips(i, two_level) for i, _ in fused)
+    _check(lh["graph_loop"] == 0, f"phase 11 {label}: host loop launched "
+                                  f"the set-condition kernel: {lh}")
+    if on_card:
+        # every kernel of the host loop launches a fixed number of times
+        # an inner iteration, which the warm-up launches once more
+        want = {k: n + WARMUP * n // cumul for k, n in lh.items()}
+        want["graph_loop"] = trips
+        _check(all(n % cumul == 0 for n in lh.values()) and lf == want,
+               f"phase 11 {label}: launches fused {lf}, host {lh}, "
+               f"expected fused {want}")
+    rate_f = cumul / sum(i.time_overall for i, _ in fused)
+    rate_h = cumul / sum(i.time_overall for i, _ in host)
+    first, last = fused[0][0], fused[-1][0]
+    print(f"phase 11: {label}: {last.status} {last.outer} / {last.cumul}"
+          f"{' (' + str(len(fused)) + ' solves)' if len(fused) > 1 else ''}"
+          f", fused == host ({bits} solution tensors bit-identical, info "
+          f"equal); inner it/s of the ADMM loop fused {rate_f:.2f} host "
+          f"{rate_h:.2f} ({rate_f / rate_h:.2f}x); entry point's wall "
+          f"fused {wall_f:.3f} s (build {first.time_build * 1e3:.1f} ms) "
+          f"host {wall_h:.3f} s; graph pool "
+          f"{first.graph_pool_bytes / 2**20:.1f} MiB; launches {lf}")
+    return dict(rate=rate_f, rate_host=rate_h, launches=lf,
+                wall=wall_f, wall_host=wall_h,
+                build_ms=first.time_build * 1e3,
+                pool_mib=first.graph_pool_bytes / 2**20,
+                outer=last.outer, cumul=last.cumul, obj=last.objval)
+
+
+def _loop_vs_plain(dev, on_card: bool, trips: int = 2000) -> dict:
+    """The set-condition kernel against its plain version: a loop whose
+    body adds one to a counter and sets the flag to (counter < trips), run
+    by ``GraphLoop`` (one WHILE node) and by ``run_on_host`` (the host
+    reads the flag back every trip). Both must stop at ``trips``; ``ms`` is
+    the loop's device time per trip (the kernel's own where the profiler
+    names it), ``plain_ms`` the host loop's per trip."""
+    from exaadmm_tpu_torch.ops import bounds, graph_loop
+
+    x = torch.zeros((), dtype=torch.int64, device=dev)
+    flag = torch.ones((), dtype=torch.int32, device=dev)
+
+    def body(x=x, flag=flag):
+        x.add_(1)
+        flag.copy_(x < trips)
+
+    def reset():
+        x.zero_()
+        flag.fill_(1)
+
+    reset()
+    graph_loop.run_on_host((body,), (flag,))
+    _sync(dev)
+    t0 = time.perf_counter()
+    reset()
+    graph_loop.run_on_host((body,), (flag,))
+    plain_ms = (time.perf_counter() - t0) * 1e3 / trips
+    n_host = int(x)
+    if not on_card:
+        ms, n_dev, kernel_ms = plain_ms, n_host, None
+    else:
+        w = torch.zeros((), dtype=torch.int64, device=dev)
+        wflag = torch.ones((), dtype=torch.int32, device=dev)
+        loop = graph_loop.GraphLoop((body,), (flag,),
+                                    warmup=lambda: body(w, wflag))
+        reset()
+        loop.launch()
+        _sync(dev)
+        # the set-condition kernel's own device counter: 1 + trips runs
+        n_set = int(loop.counts.values[loop.counts.adds["graph_loop"][0]])
+        _check(n_set == trips + 1,
+               f"set-condition loop: {n_set} counted launches for {trips} "
+               f"trips")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset()
+        start.record()
+        loop.launch()
+        end.record()
+        _sync(dev)
+        ms = start.elapsed_time(end) / trips
+        n_dev = int(x)
+        reset()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            loop.launch()
+            _sync(dev)
+        kernel_ms = None
+        for e in prof.key_averages():
+            if "set_condition" in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                if t is None:
+                    t = e.self_cuda_time_total
+                kernel_ms = t / 1e3 / max(e.count, 1)
+    err = abs(n_dev - trips) + abs(n_host - trips)
+    # the flag read, the 8-byte counter read and written, one add
+    bound_ms, bound_by = bounds.bound(4 + 8 + 8, 1)
+    print(f"phase 11: set-condition loop of {trips} trips: device stops at "
+          f"{n_dev}, host at {n_host}; device ms per trip {ms:.5f} (the "
+          f"set-condition kernel alone "
+          f"{'not named by the profiler' if kernel_ms is None else f'{kernel_ms:.5f}'}"
+          f"), host loop ms per trip {plain_ms:.5f}; bound {bound_ms:.2e} "
+          f"({bound_by})")
+    _check(err == 0, f"set-condition loop: {n_dev} / {n_host} trips")
+    return dict(ms=kernel_ms if kernel_ms is not None else ms,
+                loop_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, dx_all=float(err), library_ms=None,
+                enqueue_ms=None)
+
+
+def main_runs(dev, big, mp_data, mp_loads, T: int) -> dict:
+    """The main paths' solves of phases 4-8 and 10a, by phase, each a call
+    of its entry point at verbose 0 (the fused driver)."""
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.models.qpsub.model import QP_KEYS
+
+    qp = qp_inputs(big)
+    return {
+        "phase 4": lambda: E.solve_acopf(big.case, data=big, device=dev,
+                                         **MAIN_KW),
+        "phase 5": lambda: E.solve_mpacopf(
+            mp_data.case, data=mp_data, loads=mp_loads, end_period=T,
+            rho_pq=4e2, rho_va=4e4, outer_iterlim=3, inner_iterlim=50,
+            outer_eps=0.0, warm_start=False, verbose=0, device=dev),
+        "phase 6": lambda: E.solve_qpsub(
+            big.case, *[qp[k] for k in QP_KEYS], 1e5, data=big,
+            outer_iterlim=QP_ITERS, scale=1e-4, rho_pq=4e3, rho_va=4e3,
+            outer_eps=0.0, tron_step_cap=24, verbose=0, device=dev),
+        "phase 7": lambda: E.solve_acopf_mpec(
+            big.case, data=big, rho_pq=3e3, rho_va=3e5, outer_iterlim=10,
+            inner_iterlim=100, outer_eps=0.0, verbose=0, device=dev,
+            **MPEC_STORAGE),
+        "phase 8": lambda: E.solve_acopf(
+            big.case, data=big, use_linelimit=False, device=dev,
+            **dict(MAIN_KW, outer_iterlim=10)),
+        "phase 10a mixed": lambda: E.solve_acopf(
+            big.case, data=big, device=dev, mixed_precision=True,
+            **MAIN_KW),
+    }
+
+
+def phase11_fused(dev, big, mp_data, mp_loads, T: int, on_card: bool,
+                  case9_outer=None, qp_iters=None) -> dict:
+    """The fused drivers against the host loops on the configurations of
+    phases 4-8, 10a's mixed solve and the case9 pins of phase 3 (a
+    rehearsal may cut the case9 solves to ``case9_outer`` outer iterations
+    and the case9 QP to ``qp_iters``)."""
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.models.qpsub.model import QP_KEYS
+    from exaadmm_tpu_torch.models.qpsub.sqp import SqpBasePoint
+    from exaadmm_tpu_torch.utils.opfdata import opf_loaddata
+    from tests import qpsub_fixture as fx
+
+    def one(res):
+        return [(res.info, res.solution)]
+
+    def pin(n):
+        return n if case9_outer is None else min(n, case9_outer)
+
+    out = {"loop": _loop_vs_plain(dev, on_card)}
+    for label, call in main_runs(dev, big, mp_data, mp_loads, T).items():
+        out[label] = _fused_pair(dev, label, call, one, on_card,
+                                 two_level=label != "phase 6")
+    data9 = opf_loaddata(CASE9, verbose=0)
+    va = np.zeros(data9.nbus)
+    va[data9.line_from] = fx.line_var[4]
+    va[data9.line_to] = fx.line_var[5]
+    qp9 = qp_inputs(data9, SqpBasePoint(pg=fx.pg, qg=fx.qg,
+                                         vm=np.sqrt(fx.bus_w), va=va))
+    kw9 = dict(rho_pq=4e2, rho_va=4e4, verbose=0, device=dev)
+    pins = {
+        "case9 (3)": (lambda: E.solve_acopf(
+            CASE9, outer_eps=2e-5, outer_iterlim=pin(25), **kw9),
+            one, (PIN_OUTER, PIN_CUMUL)),
+        "case9 x 3 periods (3b)": (lambda: E.solve_mpacopf(
+            CASE9, DEMAND9, end_period=3, outer_iterlim=pin(30),
+            warm_start=False, **kw9), one, (MP_PIN_OUTER, MP_PIN_CUMUL)),
+        "case9 QP (3c)": (lambda: E.solve_qpsub(
+            CASE9, *[qp9[k] for k in QP_KEYS], 1e5,
+            outer_iterlim=qp_iters or 10000, scale=1e-4, rho_pq=4000.0,
+            rho_va=4000.0, outer_eps=2e-6, verbose=0, device=dev),
+            one, (QP_PIN_ITERS, QP_PIN_ITERS)),
+        "case9 no line limits (3d)": (lambda: E.solve_acopf(
+            CASE9, outer_eps=2e-4, outer_iterlim=pin(25),
+            use_linelimit=False, **kw9), one,
+            (POLAR_PIN_OUTER, POLAR_PIN_CUMUL)),
+        "case9 MPEC (3e)": (lambda: E.solve_acopf_mpec(
+            CASE9, outer_iterlim=pin(40), outer_eps=2e-4, **kw9), one,
+            MPEC_PINS["without storage"][:2]),
+        "case9 MPEC with storage (3e)": (lambda: E.solve_acopf_mpec(
+            CASE9, outer_iterlim=pin(40), outer_eps=2e-4, storage_ratio=0.3,
+            storage_charge_max=0.1, **kw9), one,
+            MPEC_PINS["with storage"][:2]),
+        "case9 rolling (3f)": (lambda: E.solve_acopf_rolling(
+            CASE9, DEMAND9, outer_iterlim=pin(25), outer_eps=2e-4,
+            end_period=3, tight_factor=1.0, **kw9),
+            lambda r: [(i, None) for i in r[1][:-1]]
+            + [(r[1][-1], r[0].solution)], ROLLING_PINS[0][:2]),
+    }
+    for label, (call, periods, (outer, cumul)) in pins.items():
+        r = _fused_pair(dev, label, call, periods, on_card,
+                        two_level="QP" not in label)
+        if case9_outer is None and qp_iters is None:
+            # the first period for the rolling horizon
+            got = r["outer"], r["cumul"]
+            if "rolling" not in label:
+                _check(abs(got[0] - outer) <= 1
+                       and abs(got[1] - cumul) <= 0.02 * cumul,
+                       f"phase 11 {label}: {got} against the pin "
+                       f"{(outer, cumul)}")
+        out[label] = r
+    return out
+
+
+def profile_fused(dev, label: str, call) -> dict:
+    """Where a fused solve's time goes: ``call()`` under torch.profiler;
+    from the graph's launch (its ``graph_loop.launch`` mark) to the last
+    device activity, the device's busy time and idle share, per inner
+    iteration."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        res = call()
+        _sync(dev)
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the host's mark (the profiler also puts one on the device's timeline)
+    marks = [e for e in events if e.name == "graph_loop.launch"
+             and getattr(e, "device_type", None) != cuda]
+    _check(len(marks) == 1, f"profile {label}: {len(marks)} launches")
+    t0 = marks[0].time_range.start
+    dev_ev = [e for e in events
+              if getattr(e, "device_type", None) == cuda
+              and e.name != "graph_loop.launch"
+              and e.time_range.start >= t0]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_ev)
+    span_us = max(e.time_range.end for e in dev_ev) - t0
+    n = res.info.cumul
+    print(f"profile {label} fused: {n} inner iterations, from the launch "
+          f"to the last device activity {span_us / 1e3:.3f} ms "
+          f"({span_us / 1e3 / n:.4f} ms per iteration), device busy "
+          f"{busy_us / 1e3 / n:.4f} ms per iteration, idle share "
+          f"{1 - busy_us / span_us:.3f}; {len(dev_ev) / n:.1f} device "
+          f"activities and 0 host calls per iteration (1 launch per solve)")
+    return dict(span_ms=span_us / 1e3, busy_ms=busy_us / 1e3, iters=n,
+                idle=1 - busy_us / span_us)
+
+
 def two_level_hooks(model, beta: float = 1e3):
     """The two-level driver's inner iteration, hook by hook: (name,
     fn(sol, iteration)); the last returns (sol, scalars)."""
@@ -1892,13 +2270,14 @@ def solve_to_tolerance(dev, data) -> dict:
 
 
 def run(device, big_data, mp_data, mp_loads, T: int,
-        case118_outer: int = 25, case9_mixed_outer: int = 30) -> dict:
+        case118_outer: int = 25, case9_mixed_outer: int = 30,
+        case9_fused_outer=None, qp_fused_iters=None) -> dict:
     """All phases on ``device``; ``big_data`` is the single-period grid,
     ``mp_data`` with ``mp_loads`` ((Pd, Qd), (nbus, T) each) the
     multi-period one. On a CPU device (a rehearsal) the wrappers run their
     plain versions, so the kernel comparisons and launch counts are not
-    meaningful there; a rehearsal may cut the depth of case118 and of phase
-    10a's case9 solves."""
+    meaningful there; a rehearsal may cut the depth of case118, of phase
+    10a's case9 solves and of phase 11's case9 pairs."""
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     mp = (mp_data, mp_loads, T, on_card)
@@ -1933,6 +2312,9 @@ def run(device, big_data, mp_data, mp_loads, T: int,
     results["mixed"] = phase10a_mixed(dev, big_data, on_card,
                                       results["main"], case9_mixed_outer)
     results["sort"] = phase10b_sort(dev, big_data, *mp, results["main"])
+    results["fused"] = phase11_fused(dev, big_data, mp_data, mp_loads, T,
+                                     on_card, case9_fused_outer,
+                                     qp_fused_iters)
     results["main_mixed"] = results["mixed"]["main"]
     results["main_sorted"] = results["sort"]["sorted"]
     main_runs = ("main", "main_mp", "main_qp", "main_mpec", "main_polar",
@@ -1940,8 +2322,9 @@ def run(device, big_data, mp_data, mp_loads, T: int,
     kern = []
     for name, key in (("tron_alm_branch", "tron"), ("tron_alm_ramp", "ramp"),
                       ("tron_alm_qpsub", "qpsub"), ("bus_scatter", "bus"),
-                      ("tron_alm_polar", "polar")):
-        r = results[key]["f64"]
+                      ("tron_alm_polar", "polar"), ("graph_loop", "fused")):
+        r = (results[key]["loop"] if key == "fused"
+             else results[key]["f64"])
         if key == "bus":
             err = max(r["abs"], results["bus_periods"]["f64"]["abs"],
                       results["bus_mpec"]["f64"]["abs"])
@@ -2013,6 +2396,9 @@ def main() -> int:
                               device=dev)
         profile_main(dev, "phase 8", two_level_hooks(model),
                      M.init_solution(model, 3e3, 3e5), ("primres",))
+        runs = main_runs(dev, big, mp_data, mp_loads, T)
+        for label in ("phase 4", "phase 5", "phase 6", "phase 7", "phase 8"):
+            profile_fused(dev, label, runs[label])
     if "--solve" in sys.argv[1:]:
         solve_to_tolerance(dev, big)
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,46 +1,70 @@
-"""Two-level ADMM driver, driven from the host.
+"""Two-level ADMM drivers: the host loop and the fused (device-resident) one.
 
-Counterpart of both ``admm_two_level`` and ``admm_two_level_fused`` in
-``exaadmm_tpu/algorithms/admm_two_level.py`` (the two are one algorithm; the
-fused one only moves the loops onto the device). Reference:
-admm_two_level.jl.
+Counterparts of ``admm_two_level`` and of ``make_fused_solver`` /
+``admm_two_level_fused`` in ``exaadmm_tpu/algorithms/admm_two_level.py``.
+Reference: admm_two_level.jl.
 
 Inner iteration order (admm_two_level.jl:34-63):
     z_prev <- z;  x;  xbar;  z;  l;  residual
 with the adaptive inner tolerance eps_pri = sqrt(nvar)/(2500*outer) and a
-break when primres <= eps_pri; primres is the one scalar read back per inner
-iteration. Outer: converged when ||u - v|| <= sqrt(nvar)*outer_eps;
-otherwise lz <- clamp(lz + beta z) and beta <- min(inc_c*beta, cap) when
-||z|| > theta*||z_prev||.
+break when primres <= eps_pri. Outer: converged when ||u - v|| <=
+sqrt(nvar)*outer_eps; otherwise lz <- clamp(lz + beta z) and beta <-
+min(inc_c*beta, cap) when ||z|| > theta*||z_prev||.
 
-With ``Parameters.time_hooks`` the loop fills the ``time_*_update`` fields
-of ``IterationInformation`` (the JAX package's ``verbose >= 2`` stepping):
-it synchronizes the device after every hook, so the times are the hooks' and
-the loop is slower. With it off (the default) the loop issues no extra call.
+``admm_two_level`` is the host loop: it launches every hook and reads
+primres back once per inner iteration (and the outer scalars once per outer
+iteration). It is the verbose path, and the one the ``time_hooks``, mesh and
+``sort_lines`` runs take (``two_level_driver``).
+
+``admm_two_level_fused`` runs the whole solve as one device program, as the
+JAX package's fused driver does with an outer ``lax.while_loop`` around the
+inner one: on the card ``make_fused_solver``'s ``FusedSolver`` captures the
+outer prestep, the inner iteration and the outer tail (solved; lz taken by
+``where(solved, sol, update_lz(sol, beta))``; beta escalated) as CUDA graphs
+and runs them in one graph with nested conditional WHILE nodes
+(``ops/graph_loop.py``): one launch, no synchronization inside it, one
+stacked read-back of the scalars at the end. The bodies run the same hooks in
+the same order with the same break conditions on the same values, so the
+result is bit-identical to the host loop's. On the CPU the same bodies run
+under host ``while`` loops on the flag tensors. The solver is built at its
+first call and reused: a rolling horizon or a multi-period warm start copies
+its loads and pg bounds into its static buffers, as JAX passes them to one
+compiled program.
+
+With ``Parameters.time_hooks`` the host loop fills the ``time_*_update``
+fields of ``IterationInformation`` (the JAX package's ``verbose >= 2``
+stepping): it synchronizes the device after every hook, so the times are the
+hooks' and the loop is slower. With it off (the default) the loop makes no
+extra call.
 
 With ``Parameters.sort_lines`` and a model that ``supports_line_sort``,
-each outer round after the first starts by sorting the line batch by the
-lanes' effort in the last inner iteration (``lane_steps``, stable
-ascending, as the JAX package's ``_sorted_inner_while``): the hooks then run
-on ``model.with_line_order(ids)``, the caller's model with its lines in the
+each outer round of the host loop after the first starts by sorting the
+line batch by the lanes' effort in the last inner iteration
+(``lane_steps``, stable ascending, as the JAX package's
+``_sorted_inner_while``): the hooks then run on
+``model.with_line_order(ids)``, the caller's model with its lines in the
 composed order (the model knows which of its arrays are indexed by line),
 and the state is permuted with it. The sort reads nothing back. The
 solution is put back into canonical order before it is returned.
 
 With the lines split across ranks (``parallel/sharding.py``) every rank runs
-this loop over its own model; the scalars read back here derive from
+the host loop over its own model; the scalars read back there derive from
 all-reduced tensors and replicated data, so every rank breaks on the same
 iteration. A rank sorts its own line window, with no communication.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import time
 
 import torch
 
+from ..ops import graph_loop
 from ..utils.environment import (IterationInformation, Solution,
                                  permute_solution_lines)
+from .carry import Carry
 
 
 def _beta_cap(dtype) -> float:
@@ -158,3 +182,241 @@ def admm_two_level(model, sol: Solution,
     info.time_overall = time.perf_counter() - t0
     par.beta = beta
     return sol, info
+
+
+# the carry's 0-d scalars in fp64 (the host loop's Python floats hold the
+# same values exactly) and what the solve reads back at its end
+_FLOATS = ("beta", "norm_z", "norm_z_prev", "mismatch", "primres",
+           "dualres", "objval", "auglag", "max_cviol")
+_COUNTERS = ("outer", "inner", "cumul")
+_START_INF = ("norm_z", "norm_z_prev", "mismatch", "primres", "dualres")
+# the residual's scalar names, by carry name
+_RESIDUAL = {"primres": "primres", "dualres": "dualres",
+             "norm_z": "norm_z_curr", "mismatch": "mismatch",
+             "objval": "objval", "auglag": "auglag"}
+
+
+class FusedSolver:
+    """The two-level ADMM of one model as one device-resident loop
+    (``make_fused_solver``); call it as ``solver(sol, info, Pd, Qd,
+    pgmin_curr, pgmax_curr) -> (sol, info)``.
+
+    The first call builds the carry (``algorithms/carry.py``) for ``sol``'s
+    shapes and, on the card, the loop graph (``ops/graph_loop.py``); later
+    calls must match them. ``Pd``/``Qd`` given at the first call get static
+    buffers, refilled on every call (None keeps the model's own loads); so
+    do the pg bounds of a model that has ``pgmin_curr``. The call that
+    builds puts its build time (the carry, and on the card the graph's
+    warm-up, capture and instantiation) into ``info.time_build``; every
+    call on the card puts the device memory the graph's bodies hold into
+    ``info.graph_pool_bytes``.
+    """
+
+    def __init__(self, model, par=None):
+        par = par or model.par
+        grid = getattr(model, "grid", None)
+        if getattr(grid, "mesh", None) is not None:
+            raise NotImplementedError(
+                "the fused driver under a mesh (NCCL capture; JAX "
+                "make_sharded_fused_solver) is ROADMAP Queue 1: run "
+                "admm_two_level")
+        if getattr(model, "supports_line_sort", False) and par.sort_lines:
+            raise NotImplementedError(
+                "the fused driver with sort_lines is ROADMAP Queue 1: run "
+                "admm_two_level")
+        self.par = par
+        self.source = model
+        self.sqrt_d = float(model.nvar) ** 0.5
+        self.outer_tol = self.sqrt_d * par.outer_eps
+        self.carry = self.loop = None
+
+    # ---- the loop bodies: static buffers in, static buffers out ----
+    def _outer_flag(self, c: Carry):
+        v = c.v
+        v["outer_flag"].copy_((v["outer"] < self.par.outer_iterlim)
+                              & (v["mismatch"] > self.outer_tol))
+
+    def _pre(self, c: Carry):
+        """The outer prestep: outer += 1, save ||z||, inner = 0."""
+        v = c.v
+        v["outer"].add_(1)
+        v["norm_z_prev"].copy_(v["norm_z"])
+        v["inner"].zero_()
+        v["inner_flag"].fill_(int(self.par.inner_iterlim > 0))
+
+    def _inner(self, c: Carry):
+        """One inner iteration, then the inner flag: (inner <
+        inner_iterlim) & (primres > eps_pri)."""
+        m, v = self.model, c.v
+        inner = v["inner"] + 1
+        beta = v["beta"].to(self.dtype)
+        sol = m.inner_prestep(c.sol)
+        sol, stats = m.update_x(sol, inner)
+        sol = m.update_xbar(sol, Pd=self.Pd, Qd=self.Qd)
+        sol = m.update_z(sol, beta)
+        sol = m.update_l(sol, beta)
+        sol, scalars = m.update_residual(sol, beta)
+        c.store(sol)
+        v["inner"].copy_(inner)
+        for k, name in _RESIDUAL.items():
+            v[k].copy_(scalars[name])
+        v["max_cviol"].copy_(stats["max_cviol"])
+        # sqrt_d / (2500 outer) as the host computes it (a Python float
+        # over a tensor would be a reciprocal times sqrt_d)
+        eps_pri = torch.div(self.sqrt_d_t,
+                            2500.0 * v["outer"].to(torch.float64))
+        v["inner_flag"].copy_((inner < self.par.inner_iterlim)
+                              & (v["primres"] > eps_pri))
+
+    def _tail(self, c: Carry):
+        """The outer tail (JAX ``_fused_outer_while``'s body after the
+        inner loop): lz <- update_lz unless solved, beta escalated unless
+        solved, cumul += inner, then the outer flag."""
+        par, v = self.par, c.v
+        solved = v["mismatch"] <= self.outer_tol
+        sol = c.sol
+        c.store_where(solved, sol,
+                      self.model.update_lz(sol, v["beta"].to(self.dtype)))
+        grow = ~solved & (v["norm_z"] > par.theta * v["norm_z_prev"])
+        v["beta"].copy_(torch.where(
+            grow, torch.clamp(par.inc_c * v["beta"], max=self.beta_cap),
+            v["beta"]))
+        v["cumul"].add_(v["inner"])
+        self._outer_flag(c)
+
+    def _reset(self, c: Carry, sol, info: IterationInformation):
+        """The carry at the start of a solve, as the host loop starts from
+        ``info``'s counters (kernels only: nothing comes from the host's
+        memory)."""
+        c.load(sol)
+        v = c.v
+        v["outer"].fill_(info.outer)
+        v["cumul"].fill_(info.cumul)
+        v["inner"].zero_()
+        for k in _FLOATS:
+            v[k].fill_(float("inf") if k in _START_INF else 0.0)
+        v["beta"].fill_(min(self.par.initial_beta, self.beta_cap))
+        v["inner_flag"].zero_()
+        self._outer_flag(c)
+
+    def _build(self, sol, info, Pd, Qd, pgmin, pgmax):
+        dev = sol.u.gen.device
+        self.dtype = sol.u.gen.dtype
+        self.beta_cap = _beta_cap(self.dtype)
+        self.sqrt_d_t = torch.tensor(self.sqrt_d, dtype=torch.float64,
+                                     device=dev)
+
+        given = dict(Pd=Pd, Qd=Qd, pgmin_curr=pgmin, pgmax_curr=pgmax)
+        self.inputs = {k: t.clone() for k, t in given.items()
+                       if t is not None}
+        self.Pd, self.Qd = self.inputs.get("Pd"), self.inputs.get("Qd")
+        self.model = copy.copy(self.source)
+        for k in ("pgmin_curr", "pgmax_curr"):
+            if k in self.inputs:
+                setattr(self.model, k, self.inputs[k])
+        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        flag = torch.zeros((), dtype=torch.int32, device=dev)
+        self.carry = c = Carry(sol, dict(
+            {k: zero for k in _FLOATS}, **{k: count for k in _COUNTERS},
+            inner_flag=flag, outer_flag=flag))
+        if dev.type != "cuda":
+            return
+        self._reset(c, sol, info)
+        w = c.clone()
+        self.loop = graph_loop.GraphLoop(
+            (lambda: self._pre(c), lambda: self._inner(c),
+             lambda: self._tail(c)),
+            (c.v["inner_flag"], c.v["outer_flag"]),
+            warmup=lambda: (self._pre(w), self._inner(w), self._tail(w)))
+
+    def __call__(self, sol, info: IterationInformation, Pd=None, Qd=None,
+                 pgmin_curr=None, pgmax_curr=None):
+        built = self.carry is None
+        if built:
+            t0 = time.perf_counter()
+            self._build(sol, info, Pd, Qd, pgmin_curr, pgmax_curr)
+            info.time_build = time.perf_counter() - t0
+        given = {k: t for k, t in dict(
+            Pd=Pd, Qd=Qd, pgmin_curr=pgmin_curr,
+            pgmax_curr=pgmax_curr).items() if t is not None}
+        if set(given) != set(self.inputs):
+            raise ValueError(f"a fused solver built with "
+                             f"{sorted(self.inputs)} was called with "
+                             f"{sorted(given)}")
+        for k, buf in self.inputs.items():
+            buf.copy_(given[k])
+        c, loop = self.carry, self.loop
+        with graph_loop.no_syncs(c.state[0].device):
+            self._reset(c, sol, info)
+            t0 = time.perf_counter()
+            if loop is not None:
+                loop.launch()
+        if loop is None:
+            graph_loop.run_on_host(
+                (lambda: self._pre(c), lambda: self._inner(c),
+                 lambda: self._tail(c)),
+                (c.v["inner_flag"], c.v["outer_flag"]))
+        out = c.read_back(_COUNTERS + _FLOATS, loop)
+        info.time_overall = time.perf_counter() - t0
+        if loop is not None:
+            info.graph_pool_bytes = loop.pool_bytes
+        info.outer, info.inner, info.cumul = (int(out[k]) for k in _COUNTERS)
+        info.norm_z_curr = out["norm_z"]
+        for k in ("norm_z_prev", "mismatch", "primres", "dualres", "objval",
+                  "auglag", "max_cviol"):
+            setattr(info, k, out[k])
+        if info.outer > 0:
+            info.eps_pri = self.sqrt_d / (2500.0 * info.outer)
+        info.status = ("Solved" if info.mismatch <= self.outer_tol
+                       else "IterationLimit")
+        self.par.beta = out["beta"]
+        # tensors of its own: the next solve overwrites the buffers
+        return c.clone().sol, info
+
+
+def make_fused_solver(model, par=None) -> FusedSolver:
+    """The fused two-level solver of ``model`` (JAX ``make_fused_solver``);
+    built at its first call, then reusable for any solve of the same
+    shapes."""
+    return FusedSolver(model, par)
+
+
+def admm_two_level_fused(model, sol: Solution,
+                         info: IterationInformation | None = None, run=None,
+                         Pd=None, Qd=None):
+    """The two-level ADMM as one device-resident loop; returns (sol, info)
+    as ``admm_two_level`` does, bit-identical to it.
+
+    ``run`` is a solver of ``make_fused_solver`` to reuse (built here if
+    None); the model's current ``pgmin_curr``/``pgmax_curr`` go into it with
+    ``Pd``/``Qd``. ``info.time_overall`` is the time from the launch to
+    the read-back; the build time before it is ``info.time_build``."""
+    info = info or IterationInformation()
+    if run is None:
+        run = make_fused_solver(model)
+    return run(sol, info, Pd=Pd, Qd=Qd,
+               pgmin_curr=getattr(model, "pgmin_curr", None),
+               pgmax_curr=getattr(model, "pgmax_curr", None))
+
+
+def two_level_driver(model, mesh=None):
+    """The two-level driver a solve of ``model`` runs, as the JAX package's
+    entry points choose it (``exaadmm_tpu/interface/solve_acopf.py:117-131``):
+    a function ``(model, sol, info=None, Pd=None, Qd=None) -> (sol, info)``.
+
+    - ``verbose == 0``: the fused driver, with one solver for every call
+      (a caller that solves the model period after period reuses its graph);
+    - ``verbose > 0`` or ``Parameters.time_hooks``: the host loop (JAX's
+      ``verbose >= 1`` and ``>= 2``);
+    - ``mesh`` given, or ``Parameters.sort_lines``: the host loop, in this
+      port for now (ROADMAP Queue 1: the fused driver under a mesh, whose
+      NCCL collectives a graph can hold and gloo's not, JAX
+      ``make_sharded_fused_solver``; and with the line sort, whose permuted
+      grid a graph would need in static buffers every round)."""
+    par = model.par
+    if par.verbose > 0 or par.time_hooks or mesh is not None or (
+            par.sort_lines):
+        return admm_two_level
+    return functools.partial(admm_two_level_fused,
+                             run=make_fused_solver(model))

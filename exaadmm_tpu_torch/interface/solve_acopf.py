@@ -16,6 +16,10 @@ size. Every rank gets the whole solution and the same ``info`` back.
 
 ``mixed_precision`` runs the branch batch in fp32 inside an fp64 solve
 (``Parameters.mixed_precision``); it needs ``dtype=torch.float64``.
+
+The driver is chosen as the JAX package chooses it (``two_level_driver``):
+at ``verbose=0`` the fused driver, the whole ADMM loop on the device; at
+``verbose > 0``, and over a mesh, the host loop.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import dataclasses
 
 import torch
 
-from ..algorithms.admm_two_level import admm_two_level
+from ..algorithms.admm_two_level import two_level_driver
 from ..models.acopf import model as M
 from ..models.pf.projection import pf_projection
 from ..parallel.sharding import default_pad, run_sharded
@@ -108,7 +112,7 @@ def solve_acopf(
                           tight_factor=tight_factor,
                           pad_lines_to=pad_lines_to, dtype=dtype, device=dev)
     sol = M.init_solution(model, rho_pq, rho_va)
-    sol, info = run_sharded(admm_two_level, model, sol, mesh)
+    sol, info = run_sharded(two_level_driver(model, mesh), model, sol, mesh)
     if use_projection:
         sol, proj = pf_projection(data, model, sol, verbose=verbose)
         info.time_projection = proj["time"]

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..algorithms.admm_two_level import admm_two_level
+from ..algorithms.admm_two_level import two_level_driver
 from ..models.acopf import model as M
 from ..utils.environment import IterationInformation, Parameters
 from ..utils.opfdata import OPFData, load_time_series, opf_loaddata
@@ -85,12 +85,13 @@ def solve_acopf_rolling(
     ramp_rate = ramp_ratio * gd.pgmax
 
     sol = M.init_solution(model, rho_pq, rho_va)
+    # one driver for every period: the fused one reuses its graph
+    solve = two_level_driver(model)
     infos = []
     for t in range(start_period - 1, end_period):
         Pd = torch.as_tensor(pd_mat[:, t]).to(device=dev, dtype=dtype)
         Qd = torch.as_tensor(qd_mat[:, t]).to(device=dev, dtype=dtype)
-        sol, info = admm_two_level(model, sol, IterationInformation(),
-                                   Pd=Pd, Qd=Qd)
+        sol, info = solve(model, sol, IterationInformation(), Pd=Pd, Qd=Qd)
         infos.append(info)
         if verbose > 0:
             print(f" ** Period {t + 1}: status={info.status} "

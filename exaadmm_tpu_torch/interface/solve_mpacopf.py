@@ -24,7 +24,7 @@ import dataclasses
 
 import torch
 
-from ..algorithms.admm_two_level import admm_two_level
+from ..algorithms.admm_two_level import two_level_driver
 from ..models.acopf import model as acopf_M
 from ..models.mpacopf import model as mp_M
 from ..models.pf.projection import pf_projection
@@ -104,8 +104,10 @@ def solve_mpacopf(
                                     par=dataclasses.replace(par),
                                     use_linelimit=use_linelimit)
         warm = []
+        # one driver for every period: the fused one reuses its graph
+        solve = two_level_driver(single)
         for t in range(model.T):
-            s_t, info_t = admm_two_level(
+            s_t, info_t = solve(
                 single, acopf_M.init_solution(single, rho_pq, rho_va),
                 Pd=model.Pd[t], Qd=model.Qd[t])
             if verbose > 0:
@@ -114,7 +116,7 @@ def solve_mpacopf(
             warm.append(s_t)
 
     sol = mp_M.init_solution(model, rho_pq, rho_va, warm=warm)
-    sol, info = admm_two_level(model, sol)
+    sol, info = two_level_driver(model)(model, sol)
     if use_projection:
         sol = _project_periods(data, model, sol, info, verbose)
     err_ramp = mp_M.check_ramp_violations(model, sol)

@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..algorithms.admm_two_level import admm_two_level
+from ..algorithms.admm_two_level import two_level_driver
 from ..models.mpec import model as MM
 from ..parallel.sharding import default_pad, run_sharded
 from ..utils.environment import AdmmEnv, IterationInformation, Parameters
@@ -137,7 +137,7 @@ def solve_acopf_mpec(
                         tight_factor=tight_factor, pad_lines_to=pad_lines_to,
                         dtype=dtype, device=dev)
     sol = MM.init_solution(model, rho_pq, rho_va)
-    sol, info = run_sharded(admm_two_level, model, sol, mesh)
+    sol, info = run_sharded(two_level_driver(model, mesh), model, sol, mesh)
 
     freq_change = float(sol.v.fg[0]) if model.grid.ngen > 0 else 0.0
     vm_dev = float(torch.amax(torch.abs(

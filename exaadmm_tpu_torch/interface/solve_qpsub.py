@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from ..algorithms.admm_one_level import admm_one_level
+from ..algorithms.admm_one_level import one_level_driver
 from ..models.pf.projection import pf_projection
 from ..models.qpsub import model as Q
 from ..parallel.sharding import default_pad, run_sharded
@@ -102,7 +102,7 @@ def solve_qpsub(
                           tight_factor=tight_factor,
                           pad_lines_to=pad_lines_to, dtype=dtype, device=dev)
     sol = Q.init_solution(model, rho_pq, rho_va)
-    sol, info = run_sharded(admm_one_level, model, sol, mesh)
+    sol, info = run_sharded(one_level_driver(model, mesh), model, sol, mesh)
     sqp_out = Q.poststep(model, sol)
     if use_projection:
         base, proj = pf_projection(data, model, sol.base, Pd=model.Pd,

@@ -28,7 +28,8 @@ import torch
 from ...ops import tron_cuda
 from ...ops.tron import TronALMResult
 from ...parallel.sharding import all_reduce_max, all_reduce_sum
-from ...utils.environment import BranchALMState, Parameters, Solution
+from ...utils.environment import (BranchALMState, Parameters, Solution,
+                                 on_first_iteration)
 from ...utils.grid_data import GridData
 
 #: order of the per-line admittances in the packed kernel parameters
@@ -356,17 +357,19 @@ def branch_tolerances(par: Parameters, dtype):
 
 
 def branch_inputs(sol: Solution, gd: GridData, par: Parameters,
-                  inner_iter: int):
+                  inner_iter):
     """The batch's inputs: x0, xl, xu (6, B), params, lam0 (2, B), mu0 (B,)
     and active0 (B,).
 
-    ``inner_iter`` is the 1-based inner-iteration counter: the ALM penalty
+    ``inner_iter`` is the 1-based inner-iteration counter (an int, or a 0-d
+    tensor in the fused loop): the ALM penalty
     restarts at 10 on the first inner iteration of each outer loop (membuf
     row 27, auglag kernel :81-87); the multipliers warm-start across all
     iterations."""
     alm = sol.branch_alm
     x0, xl, xu = _warm_start_x0(sol.u.line, gd)
-    mu0 = torch.full_like(alm.mu, 10.0) if inner_iter == 1 else alm.mu
+    mu0 = on_first_iteration(inner_iter, torch.full_like(alm.mu, 10.0),
+                             alm.mu)
     lam0 = torch.stack([alm.lam1, alm.lam2])
     return (x0, xl, xu, _branch_params(sol, gd, par), lam0, mu0,
             gd.line_mask > 0.5)
@@ -407,7 +410,7 @@ def cast_up(res: TronALMResult, dtype) -> TronALMResult:
 
 
 def branch_update(sol: Solution, gd: GridData, par: Parameters,
-                  inner_iter: int, use_linelimit: bool = True):
+                  inner_iter, use_linelimit: bool = True):
     """Solve all line subproblems; returns (new u line block, new ALM state,
     stats). The stats are tensors (nothing is read back here). Without line
     limits the ALM state is returned unchanged and ``max_cviol`` is 0.

@@ -61,7 +61,7 @@ class ModelAcopf:
     def inner_prestep(self, sol: Solution) -> Solution:
         return sol.replace(z_prev=sol.z)
 
-    def update_x(self, sol: Solution, inner_iter: int):
+    def update_x(self, sol: Solution, inner_iter):
         """x update: closed-form generators + the branch TRON/ALM batch."""
         gd = self.grid
         u_gen = kernels.generator_update(

@@ -109,7 +109,7 @@ class ModelMpacopf:
         return sol.replace(acopf=sol.acopf.replace(z_prev=sol.acopf.z),
                            ramp=sol.ramp.replace(z_prev=sol.ramp.z))
 
-    def update_x(self, sol: SolutionMpacopf, inner_iter: int):
+    def update_x(self, sol: SolutionMpacopf, inner_iter):
         """x update: closed-form qg (all periods) and pg (period 1), the
         ramp batch for pg of periods 2..T, and the T-period branch batch."""
         gd = self.grid

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ...utils.environment import SolutionMpacopf
+from ...utils.environment import SolutionMpacopf, on_first_iteration
 from ..acopf.branch import branch_tolerances
 
 #: row order of the ramp lane parameters in the packed kernel block
@@ -79,7 +79,7 @@ def ramp_fgh(x, p, lam, mu):
 ramp_tolerances = branch_tolerances
 
 
-def ramp_inputs(sol: SolutionMpacopf, model, inner_iter: int):
+def ramp_inputs(sol: SolutionMpacopf, model, inner_iter):
     """The ramp batch of periods 2..T: x0, xl, xu (3, B), params, lam0
     (1, B) and mu0 (B,), lanes ordered period-major (B = (T-1) ngen).
 
@@ -114,6 +114,7 @@ def ramp_inputs(sol: SolutionMpacopf, model, inner_iter: int):
         torch.clamp(flat(rp.u), min=xl[1], max=xu[1]),
         torch.clamp(flat(rp.s), min=xl[2], max=xu[2]),
     ])
-    mu0 = (torch.full_like(params["baseMVA"], 10.0) if inner_iter <= 1
-           else flat(rp.alm_xi))
+    mu0 = on_first_iteration(inner_iter,
+                             torch.full_like(params["baseMVA"], 10.0),
+                             flat(rp.alm_xi))
     return x0, xl, xu, params, flat(rp.alm_mu)[None], mu0

@@ -173,7 +173,7 @@ class ModelMpec:
     def inner_prestep(self, sol: SolutionMpec) -> SolutionMpec:
         return sol.replace(z_prev=sol.z)
 
-    def update_x(self, sol: SolutionMpec, inner_iter: int):
+    def update_x(self, sol: SolutionMpec, inner_iter):
         gd = self.grid
         u, v, z, l, rho = sol.u, sol.v, sol.z, sol.l, sol.rho
         pgmin, pgmax = self.pgmin_curr, self.pgmax_curr

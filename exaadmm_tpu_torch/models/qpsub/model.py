@@ -39,7 +39,7 @@ from ...ops import tron_cuda
 from ...parallel.sharding import all_reduce_sum
 from ...ops.tron import _dot, _hmatvec, _rowsum
 from ...utils.environment import (Blocks, Parameters, Solution, SolutionQpsub,
-                                  blocks_map)
+                                  blocks_map, on_first_iteration)
 from ...utils.grid_data import GridData, build_grid_data
 from ..acopf import kernels
 
@@ -168,15 +168,23 @@ class ModelQpsub:
         return sol.replace(base=b.replace(
             z=zero, z_prev=zero, lz=blocks_map(torch.zeros_like, b.lz)))
 
-    def solve_prep(self, sol: SolutionQpsub) -> "ModelQpsub":
+    def solve_prep(self, sol: SolutionQpsub,
+                   out: "ModelQpsub | None" = None) -> "ModelQpsub":
         """A copy of the model holding the solve's rho-only QP constants
         (``qp_solve_constants`` of ``sol``'s rho), which ``update_x`` then
-        reuses on every iteration."""
+        reuses on every iteration. With ``out``, a copy an earlier call
+        returned, the constants are copied into its tensors and ``out`` is
+        returned (a captured loop reads them where they are)."""
+        cache = qp_solve_constants(self, sol.base.rho.line)
+        if out is not None:
+            for k, t in cache.items():
+                out._qp_cache[k].copy_(t)
+            return out
         m = copy.copy(self)
-        m._qp_cache = qp_solve_constants(self, sol.base.rho.line)
+        m._qp_cache = cache
         return m
 
-    def update_x(self, sol: SolutionQpsub, inner_iter: int):
+    def update_x(self, sol: SolutionQpsub, inner_iter):
         """x update: closed-form generators + the reduced-QP TRON/ALM batch;
         returns (new state, stats). The stats are tensors."""
         gd = self.grid
@@ -361,7 +369,7 @@ def qpsub_tolerances(par: Parameters, dtype, use_linelimit: bool = True
                 step_cap=par.tron_step_cap)
 
 
-def qpsub_inputs(model: ModelQpsub, sol: SolutionQpsub, inner_iter: int):
+def qpsub_inputs(model: ModelQpsub, sol: SolutionQpsub, inner_iter):
     """The batch's inputs: x0, xl, xu (6, B), params, lam0 (2, B), mu0 (B,)
     and active0 (B,).
 
@@ -395,7 +403,8 @@ def qpsub_inputs(model: ModelQpsub, sol: SolutionQpsub, inner_iter: int):
     x0 = torch.cat([zerov[None], zerov[None], sol.sqp_line[:, 2:].T])
     x0 = torch.clamp(x0, min=xl, max=xu)
 
-    mu0 = torch.full_like(zerov, 10.0) if inner_iter <= 1 else sol.alm_mu
+    mu0 = on_first_iteration(inner_iter, torch.full_like(zerov, 10.0),
+                             sol.alm_mu)
     lam0 = torch.stack([sol.alm_lam_j, sol.alm_lam_k])
     if not model.use_linelimit:
         mu0 = torch.zeros_like(mu0)

@@ -10,7 +10,8 @@ update. ``out[b, c] = sum(vals[r, c] for the rows r of segment b)``:
 - on a CPU tensor, the plain version ``index_add_`` over the segment ids,
   which on the CPU adds the rows in the same ascending order.
 
-``launches`` counts the kernel's launches.
+``launches`` counts the kernel's launches, a launch that a fused driver's
+graph replays once per replay (``graph_loop.count_launch``).
 """
 
 from __future__ import annotations
@@ -19,13 +20,18 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, graph_loop
 
 launches = 0
 
 _FN = {torch.float64: "bus_scatter_f64", torch.float32: "bus_scatter_f32"}
 # (vals, ptr, idx, out, nseg, nch, stream)
 _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def _add_launches(n: int) -> None:
+    global launches
+    launches += n
 
 
 def library():
@@ -64,7 +70,6 @@ def bus_scatter(vals: torch.Tensor, seg_ids: torch.Tensor,
             raise ValueError(
                 f"bus_scatter: {name} must be a contiguous int32 vector on "
                 f"{vals.device}")
-    global launches
     lib = library()
     out = torch.empty((nseg, vals.shape[1]), dtype=vals.dtype,
                       device=vals.device)
@@ -74,7 +79,7 @@ def bus_scatter(vals: torch.Tensor, seg_ids: torch.Tensor,
             vals.data_ptr(), ptr.data_ptr(), idx.data_ptr(), out.data_ptr(),
             nseg, vals.shape[1], stream)
     _build.check(lib, err, "bus_scatter")
-    launches += 1
+    graph_loop.count_launch(_add_launches, "bus_scatter")
     return out
 
 

@@ -24,8 +24,10 @@ device raises.
 
 ``launches`` counts the kernels' launches by entry point
 (``tron_alm_branch_f64``, ``tron_alm_branch_f32`` and so on, so the f32
-instances of a mixed-precision solve show apart from the f64 ones);
-``instance_launches`` sums an instance's two.
+instances of a mixed-precision solve show apart from the f64 ones), a
+launch that a fused driver's graph replays once per replay
+(``graph_loop.count_launch``); ``instance_launches`` sums an instance's
+two.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, graph_loop
 from .tron import TronALMResult, tron_alm_batched
 
 launches: dict = {}
@@ -60,6 +62,10 @@ QPSUB = _Instance("tron_alm_qpsub", 6, 2, 21 + 3 * 6 + 4)
 # the branch's parameter block (pack_params); no constraints
 POLAR = _Instance("tron_alm_polar", 4, 0, 33)
 _SUFFIX = {torch.float64: "_f64", torch.float32: "_f32"}
+
+
+def _add_launches(entry: str, n: int) -> None:
+    launches[entry] = launches.get(entry, 0) + n
 
 
 def instance_launches(inst: _Instance) -> int:
@@ -194,7 +200,7 @@ def _launch(inst: _Instance, x0, xl, xu, P, lam0, mu0, active0, gtol, frtol,
             stream)
     _build.check(lib, err, inst.name)
     if B > 0:   # an empty batch launches no kernel
-        launches[entry] = launches.get(entry, 0) + 1
+        graph_loop.count_launch(lambda n: _add_launches(entry, n), entry)
     return TronALMResult(x=x, lam=lam, mu=mu, minor_iters=minor,
                          alm_iters=alm, cviol=cviol)
 

@@ -260,6 +260,16 @@ class RampState(_TensorRecord):
                                            device=device))
 
 
+def on_first_iteration(inner_iter, first, rest):
+    """``first`` on the first iteration (``inner_iter <= 1``), else
+    ``rest``. ``inner_iter`` is a Python int (the host loop) or a 0-d
+    tensor (the fused loop, which reads nothing back): then the choice is a
+    ``torch.where``."""
+    if isinstance(inner_iter, torch.Tensor):
+        return torch.where(inner_iter <= 1, first, rest)
+    return first if inner_iter <= 1 else rest
+
+
 #: the fields of a RampState, in declaration order
 RAMP_FIELDS = tuple(f.name for f in dataclasses.fields(RampState))
 
@@ -321,6 +331,12 @@ class IterationInformation:
     # worst branch line-limit constraint violation of the last inner iteration
     max_cviol: float = 0.0
     time_overall: float = 0.0
+    # the fused drivers on the card: the seconds this call spent building
+    # the loop graph before ``time_overall`` began (warm-up, capture and
+    # instantiation; 0 when it reused a built one) and the device memory
+    # the loop's graphs hold
+    time_build: float = 0.0
+    graph_pool_bytes: int = 0
     # seconds spent in each hook of the two-level ADMM loop, summed over the
     # solve; filled only with ``Parameters.time_hooks``
     time_x_update: float = 0.0

@@ -24,11 +24,12 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     data = opf_loaddata(case9_path, verbose=0)
     loads = load_time_series(chip_smoke.DEMAND9)
     res = chip_smoke.run("cpu", data, data, loads, 3, case118_outer=2,
-                         case9_mixed_outer=2)
+                         case9_mixed_outer=2, case9_fused_outer=2,
+                         qp_fused_iters=40)
     out = capsys.readouterr().out
     for phase in ("1", "1b", "1c", "2", "2b", "2c", "2d", "3", "3b", "3c",
                   "3d", "3e", "3f", "3g", "3h", "4", "5", "6", "7", "8",
-                  "9a", "9b", "10a", "10b"):
+                  "9a", "9b", "10a", "10b", "11"):
         assert f"phase {phase}:" in out
     # mixed precision and line sorting at phase 4's configuration
     assert res["main_mixed"]["outer"] == res["main"]["outer"]
@@ -74,9 +75,20 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     assert abs(res["case9_qp"]["obj"] - chip_smoke.QP_PIN_OBJ) <= 1e-8
     assert res["main_qp"]["mismatch"] > 0.0
     assert set(res["qpsub"]) == {"f64", "f32", "f64_nolimit", "f32_nolimit"}
+    # phase 11: the fused drivers against the host loops, on every main
+    # path and the case9 pins (cut), the same counts as the phases' own runs
+    for label, base in (("phase 4", "main"), ("phase 5", "main_mp"),
+                        ("phase 7", "main_mpec"), ("phase 8", "main_polar")):
+        assert res["fused"][label]["rate"] > 0.0
+        assert res["fused"][label]["launches"] == res[base]["launches"]
+    assert res["fused"]["phase 10a mixed"]["cumul"] == res["main_mixed"][
+        "cumul"]
+    assert res["fused"]["case9 QP (3c)"]["cumul"] == 40
+    assert res["fused"]["loop"]["dx_all"] == 0.0
+    assert out.count("fused == host") == 13
     names = [k["name"] for k in res["kernels"]]
     assert names == ["tron_alm_branch", "tron_alm_ramp", "tron_alm_qpsub",
-                     "bus_scatter", "tron_alm_polar"]
+                     "bus_scatter", "tron_alm_polar", "graph_loop"]
     for k in res["kernels"]:
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -89,10 +101,11 @@ def test_rehearsal_on_cpu(case9_path, capsys):
         path, line = k["replaces"].split(" ")[0].split(":")
         with open(os.path.join(ROOT, path)) as f:
             text = f.read().splitlines()[int(line) - 1]
-        # a TPU kernel's function, or the JAX call that runs the polar
-        # batch as plain XLA
-        assert ("tron_batched(" in text if k["name"] == "tron_alm_polar"
-                else "def " in text)
+        # a TPU kernel's function, the JAX call that runs the polar batch
+        # as plain XLA, or the JAX loop that the graph's loop replaces
+        assert {"tron_alm_polar": "tron_batched(",
+                "graph_loop": "lax.while_loop("}.get(k["name"],
+                                                    "def ") in text
     json.dumps(res["kernels"])
 
 
