@@ -117,17 +117,24 @@ per source, all at once) and runs, in order:
 8. phase 4's configuration without line limits (the polar kernel), over
    10 outer iterations like phase 7: the same report;
 9a. the lines-split-across-ranks path (``parallel/``) at world size 1 over
-   NCCL, phase 4's configuration through ``solve_acopf(mesh=...)``: the
-   same outer and cumul and a bit-equal objective as phase 4 in the same
-   call, exactly 4 all-reduces per inner iteration (bus sums, residual
-   partials, branch effort sums, max_cviol), the inner it/s beside phase
-   4's;
+   NCCL, phase 4's configuration through ``solve_acopf(mesh=...)`` at
+   verbose 0: the fused driver, its collectives captured into the loop's
+   graph as NCCL work. The same status, outer and cumul and a bit-equal
+   objective as phase 4 in the same call; the loop bodies' nodes all of a
+   kind a conditional body holds (event nodes, if any, made edges, and
+   counted); exactly 4 all-reduces per inner iteration (bus sums, residual
+   partials, branch effort sums, max_cviol), counted on the device; then
+   the host loop over the same mesh, every solution tensor bit-identical;
+   the inner it/s of both beside phase 4's fused rate, the build ms and the
+   pool MiB;
 9b. two ranks on the one card over gloo (the all-reduce payloads staged
    through pinned host memory, ``parallel/sharding.py``): case9, 6 outer
    iterations, against the one-process card run (the same cumul, objective
    within 1e-8 relative); then phase 4's configuration on the two ranks:
    cumul within 2 % of phase 4's, the inner it/s beside it (two host loops
-   share one card: a correctness phase, not a speed claim). A rank that
+   share one card: a correctness phase, not a speed claim). Gloo on the
+   card runs the host loop by rule: it stages every collective through
+   pinned host memory, which a CUDA graph cannot hold. A rank that
    hangs fails the phase: every collective and the join have a time limit.
    NCCL between cards is not run here: the machine has one card;
 10a. mixed precision (an fp64 solve with the branch batch in fp32): phase
@@ -142,9 +149,14 @@ per source, all at once) and runs, in order:
    side of the tolerance a mixed case9 solve lands on is fp32 rounding:
    ROADMAP's Queue 3, tests/torch_mixed_trace.py);
 10b. line sorting: phase 4's configuration with ``Parameters(sort_lines=
-   True)`` through the model and the driver: phase 4's outer count, cumul
+   True)`` through the model and the driver, first the host loop, then the
+   fused driver (the driver's choice at verbose 0): the same counts and
+   info and every solution tensor bit-identical, the fused loop's last line
+   order the host loop's last; phase 4's outer count, cumul
    within 2 %, the objective within 1e-6 relative, the rows back in
-   canonical order (every line copy of a bus's w equal); the scatter
+   canonical order (every line copy of a bus's w equal); the device ms of
+   the fused loop's outer prestep with the sort (captured alone and
+   replayed) per outer round; the scatter
    over the CSR derived for every sorted round's order, against its plain
    version and the canonical order's sums (1e-13 relative); the branch
    kernel's device time at steady state (the batch after the sorted
@@ -157,7 +169,8 @@ per source, all at once) and runs, in order:
    version, a loop of 2000 trips run by the graph and by the host (both
    stop at 2000; device ms per trip, the kernel's own from the profiler,
    the host loop's per trip); then, on the configurations of phases 4-8,
-   10a's mixed solve and the case9 pins of phase 3 (3, 3b, 3c, 3d, both of
+   10a's mixed solve, 10b's sorted solve, 9a's mesh of one rank and the
+   case9 pins of phase 3 (3, 3b, 3c, 3d, both of
    3e, 3f), the entry point's fused solve against its host loop: the same
    status, outer, cumul and info scalars, every solution tensor
    bit-identical, the host loop's counted launches of every kernel plus
@@ -175,17 +188,18 @@ The kernels' launch counters are zeroed just before phases 4, 5, 6, 7, 8,
 9a and 9b's full-size run (there on rank 0, which reports them), 10a's
 mixed solve and 10b's sorted solve at phase 4's configuration, and read just
 after each; the ``launches`` of a kernel in the JSON line are the sum over
-those nine runs. Phases 4-8 and 10a run the fused driver: a wrapper called
-while its loop body is captured counts on the device, once per replay, and
-the solve reads those counters back with its scalars; the warm-up before
-the capture counts as any launch (``ops/graph_loop.py``). 9a, 9b and 10b
-run the host loop.
+those nine runs. Phases 4-8, 9a, 10a and 10b run the fused driver: a
+wrapper called while its loop body is captured counts on the device, once
+per replay, and the solve reads those counters back with its scalars; the
+warm-up before the capture counts as any launch (``ops/graph_loop.py``).
+9b runs the host loop.
 
 ``--profile`` adds a breakdown of one iteration of the configurations of
 phases 4 to 8 (host time per hook, device time by kernel, idle share) and
 ``utils/profiling.py::profile_iteration``'s device time per hook of phase
-4's model, then each of those phases' fused solve from its launch to its
-last device activity (device busy time and idle share per iteration);
+4's model, then each of those phases' fused solve, 10b's sorted one and
+9a's over a mesh of one rank, from its launch to its last device activity
+(device busy time and idle share per iteration);
 ``--solve`` adds the time to tolerance of phase 4's configuration.
 
 Each phase prints one line of numbers; any failure raises, so the script
@@ -927,7 +941,7 @@ def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
                f"{label}: bus launches {launches}")
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, peak=peak, outer=info.outer,
-                cumul=info.cumul, obj=info.objval)
+                cumul=info.cumul, obj=info.objval, status=info.status)
 
 
 def phase3g_case118(dev, on_card: bool, outer_iterlim: int = 25) -> dict:
@@ -1010,10 +1024,10 @@ def phase3h_checkpoint(dev, on_card: bool) -> dict:
                 obj=info.objval)
 
 
-def phase9a_mesh_one_rank(dev, data, on_card: bool, base: dict) -> dict:
-    """Phase 4's solve through the mesh path at world size 1 (NCCL on the
-    card, gloo on the CPU), against phase 4's result ``base``."""
-    import exaadmm_tpu_torch as E
+@contextlib.contextmanager
+def _one_rank_mesh(dev, on_card: bool):
+    """A process group of this one process (NCCL on the card, gloo on the
+    CPU) and its mesh, its communicator set up by a first collective."""
     from exaadmm_tpu_torch.parallel import distributed, sharding
 
     distributed.initialize(f"tcp://127.0.0.1:{distributed.free_port()}",
@@ -1023,52 +1037,133 @@ def phase9a_mesh_one_rank(dev, data, on_card: bool, base: dict) -> dict:
         _check(mesh.size == 1 and mesh.group is not None
                and mesh.backend == ("nccl" if on_card else "gloo"),
                f"mesh of one rank: {mesh}")
-        # the first collective sets the communicator up: keep it out of the
-        # loop's time
         sharding.all_reduce_sum(torch.zeros(8, device=dev), mesh)
         _sync(dev)
+        yield mesh
+    finally:
+        distributed.shutdown()
+
+
+@contextlib.contextmanager
+def _loops_built():
+    """The ``GraphLoop``s built inside the block, in a list."""
+    from exaadmm_tpu_torch.ops import graph_loop
+    built = []
+    init = graph_loop.GraphLoop.__init__
+
+    def recorded(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+
+    graph_loop.GraphLoop.__init__ = recorded
+    try:
+        yield built
+    finally:
+        graph_loop.GraphLoop.__init__ = init
+
+
+#: the node types a conditional WHILE body holds (CUDA 12.4+); the loop
+#: graph holds a body's event nodes as edges (``csrc/graph_loop.cu``)
+BODY_NODES = {"kernel", "memcpy", "memset", "empty", "graph", "conditional"}
+EVENT_NODES = {"wait_event", "event_record"}
+
+
+def phase9a_mesh_one_rank(dev, data, on_card: bool, base: dict) -> dict:
+    """Phase 4's solve through the mesh path at world size 1 (NCCL on the
+    card, gloo on the CPU), against phase 4's result ``base``: the fused
+    driver (the collectives captured into its graph on the card), then the
+    host loop over the same mesh, bit-identical."""
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.algorithms.carry import leaves
+    from exaadmm_tpu_torch.parallel import sharding
+
+    warm = WARMUP if on_card else 0
+    with _one_rank_mesh(dev, on_card) as mesh:
         _zero_launches()
         sharding.reset_counts()
         sharding.log = []
         t0 = time.perf_counter()
-        res = E.solve_acopf(data.case, data=data, mesh=mesh, device=dev,
-                            **MAIN_KW)
+        with _loops_built() as built:
+            res = E.solve_acopf(data.case, data=data, mesh=mesh, device=dev,
+                                **MAIN_KW)
         _sync(dev)
         secs = time.perf_counter() - t0
         log, sharding.log = sharding.log, None
-    finally:
-        distributed.shutdown()
-    launches = _launches()
+        launches = _launches()
+        counts = dict(sharding.counts)
+        with _host_loop():
+            host = E.solve_acopf(data.case, data=data, mesh=mesh, device=dev,
+                                 **MAIN_KW)
+        _sync(dev)
     info = res.info
-    counts = dict(sharding.counts)
     reduces = counts["all_reduce_sum"] + counts["all_reduce_max"]
-    per_it = reduces / info.cumul
-    nbytes = sum(b for k, _, b in log if k != "all_gather") / info.cumul
+    # the warm-up's collectives run on the host before the capture
+    per_it = (reduces - 4 * warm) / info.cumul
+    one_it = [e for e in log if e[0] != "all_gather"][:4]
+    nbytes = sum(b for _, _, b in one_it)
     rate = info.cumul / info.time_overall
-    print(f"phase 9a: {data.case} over a mesh of 1 rank ({mesh.backend}): "
-          f"{info.outer} outer, {info.cumul} inner (phase 4: {base['outer']}"
-          f" / {base['cumul']}), obj {info.objval!r} (phase 4: "
-          f"{base['obj']!r}); {per_it:.2f} all-reduces and {nbytes:.0f} B "
-          f"per inner iteration, {counts['all_gather']} gathers after the "
-          f"loop; ADMM loop {info.time_overall:.3f} s = {rate:.2f} inner "
-          f"it/s (phase 4: {base['rate']:.2f}), whole call {secs:.3f} s; "
-          f"launches {launches}")
-    _check((info.outer, info.cumul) == (base["outer"], base["cumul"]),
-           f"mesh of one rank: {info.outer} / {info.cumul}")
+    rate_host = host.info.cumul / host.info.time_overall
+    pairs = list(zip(leaves(res.solution), leaves(host.solution),
+                     strict=True))
+    same = all(bool(torch.equal(a, b)) for a, b in pairs)
+    nodes, rewritten, device_reduces = "not built (CPU)", 0, None
+    if on_card:
+        _check(len(built) == 1, f"mesh of one rank: {len(built)} loops built")
+        loop = built[0]
+        nodes, rewritten = loop.node_types(), loop.rewritten
+        slots = loop.counts.adds
+        device_reduces = {k: int(loop.counts.values[slots[k][0]])
+                          for k in ("all_reduce_sum", "all_reduce_max")}
+        found = set().union(*nodes)
+        _check(found - EVENT_NODES <= BODY_NODES
+               and rewritten == sum(n.get(k, 0) for n in nodes
+                                    for k in EVENT_NODES),
+               f"mesh of one rank: body nodes {nodes}, {rewritten} event "
+               f"nodes made edges")
+    print(f"phase 9a: {data.case} over a mesh of 1 rank ({mesh.backend}), "
+          f"fused: {info.outer} outer, {info.cumul} inner (phase 4: "
+          f"{base['outer']} / {base['cumul']}), obj {info.objval!r} (phase "
+          f"4: {base['obj']!r}); {per_it:.2f} all-reduces per inner "
+          f"iteration (on the device: {device_reduces}), {nbytes} B each "
+          f"iteration, {counts['all_gather']} gathers after the loop; loop "
+          f"bodies' nodes {nodes}, {rewritten} event nodes made edges; "
+          f"ADMM loop {info.time_overall:.3f} s = {rate:.2f} inner it/s "
+          f"(phase 4 fused: {base['rate']:.2f}; this mesh's host loop: "
+          f"{rate_host:.2f}), build {info.time_build * 1e3:.1f} ms, pool "
+          f"{info.graph_pool_bytes / 2**20:.1f} MiB, whole call {secs:.3f} "
+          f"s; host loop {host.info.outer} / {host.info.cumul}, "
+          f"{len(pairs)} solution tensors bit-identical: {same}; launches "
+          f"{launches}")
+    _check((info.status, info.outer, info.cumul) == (
+        base["status"], base["outer"], base["cumul"]),
+        f"mesh of one rank: {info.status} {info.outer} / {info.cumul}")
     _check(info.objval == base["obj"],
            f"mesh of one rank: obj {info.objval!r} != {base['obj']!r}")
-    _check(reduces == 4 * info.cumul,
+    _check(reduces == 4 * (info.cumul + warm),
            f"mesh of one rank: {reduces} all-reduces for {info.cumul} inner "
            f"iterations")
+    _check([k for k, _, _ in one_it] == ["all_reduce_sum", "all_reduce_max",
+                                         "all_reduce_sum", "all_reduce_sum"],
+           f"mesh of one rank: collectives {one_it}")
+    _check(same and (host.info.outer, host.info.cumul, host.info.objval) == (
+        info.outer, info.cumul, info.objval),
+        "mesh of one rank: the fused solve differs from the host loop's")
     _check(res.solution.u.line.shape[0] == data.nline,
            "mesh of one rank: line count")
     if on_card:
-        _check(launches["tron_alm_branch"] == info.cumul
-               and launches["bus_scatter"] == 2 * info.cumul,
+        _check(device_reduces == {"all_reduce_sum": 3 * info.cumul,
+                                  "all_reduce_max": info.cumul},
+               f"mesh of one rank: device counts {device_reduces}")
+        _check(launches["tron_alm_branch"] == info.cumul + WARMUP
+               and launches["bus_scatter"] == 2 * (info.cumul + WARMUP)
+               and launches["graph_loop"] == _loop_trips(info),
                f"mesh of one rank: launches {launches}")
-    return dict(launches=launches, rate=rate, outer=info.outer,
-                cumul=info.cumul, obj=info.objval, per_it=per_it,
-                bytes_per_it=nbytes)
+    return dict(launches=launches, rate=rate, rate_host=rate_host,
+                outer=info.outer, cumul=info.cumul, obj=info.objval,
+                per_it=per_it, bytes_per_it=nbytes,
+                build_ms=info.time_build * 1e3,
+                pool_mib=info.graph_pool_bytes / 2**20, nodes=nodes,
+                rewritten=rewritten)
 
 
 def _two_rank_solves(mesh, dev, data):
@@ -1677,41 +1772,107 @@ def phase10a_mixed(dev, data, on_card: bool, base: dict,
     return out
 
 
-def _sorted_solve(dev, model, sol, label: str, base: dict,
-                  on_card: bool) -> dict:
-    """Phase 4's loop on ``model`` with line sorting on, against phase 4's
-    ``base``: the same outer count, cumul within 2 %, the objective within
-    1e-6 relative, the rows back in canonical order. Records the line order
-    of every sorted round (``ids``)."""
-    from exaadmm_tpu_torch.algorithms.admm_two_level import admm_two_level
-    from exaadmm_tpu_torch.models.acopf.model import ModelAcopf
+def _time_pre(dev, run, reps: int = 20) -> float:
+    """The device ms of a sorting fused solver's outer prestep (``run._pre``:
+    the sort of the last iteration's steps, the state's line rows and the
+    grid's line arrays gathered in the new order, the arc CSR derived
+    again), captured alone on a copy of the solver's carry and replayed
+    ``reps`` times; on the CPU the host's ms of the eager prestep."""
+    w = run.carry.clone()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run._pre(w)
+        return (time.perf_counter() - t0) * 1e3 / reps
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        run._pre(w)
+    cur.wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        run._pre(w)
+    g.replay()
+    _sync(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    _sync(dev)
+    return start.elapsed_time(end) / reps
 
+
+def _sorted_solve(dev, model, label: str, base: dict,
+                  on_card: bool) -> dict:
+    """Phase 4's solve of ``model`` with line sorting on: the host loop,
+    which records the line order of every sorted round (``ids``), then the
+    driver's choice at verbose 0, the fused loop, which keeps only the last
+    order. The fused solve must equal the host loop's (the same counts and
+    info, every solution tensor bit-identical, the same last order) and hold
+    phase 4's ``base``: the same outer count, cumul within 2 %, the
+    objective within 1e-6 relative, the rows back in canonical order. Then
+    the device ms of the fused loop's outer prestep with the sort."""
+    from exaadmm_tpu_torch.algorithms import admm_two_level as two
+    from exaadmm_tpu_torch.algorithms.carry import leaves
+    from exaadmm_tpu_torch.models.acopf import model as M
+
+    rho = MAIN_KW["rho_pq"], MAIN_KW["rho_va"]
     ids = []
-    reorder = ModelAcopf.with_line_order
+    reorder = M.ModelAcopf.with_line_order
 
     def recorded(self, line_ids):
         ids.append(line_ids.clone())
         return reorder(self, line_ids)
 
-    ModelAcopf.with_line_order = recorded
+    M.ModelAcopf.with_line_order = recorded
     try:
-        _sync(dev)
-        _zero_launches()
-        sol, info = admm_two_level(model, sol)
+        host_sol, host = two.admm_two_level(model,
+                                            M.init_solution(model, *rho))
         _sync(dev)
     finally:
-        ModelAcopf.with_line_order = reorder
+        M.ModelAcopf.with_line_order = reorder
+    driver = two.two_level_driver(model)
+    _check(driver.func is two.admm_two_level_fused,
+           f"{label}: the driver at verbose 0 is not the fused one")
+    _zero_launches()
+    sol, info = driver(model, M.init_solution(model, *rho))
+    _sync(dev)
     launches = _launches()
+    run = driver.keywords["run"]
+    last = run.carry.v["line_ids"]
+    pairs = list(zip(leaves(sol), leaves(host_sol), strict=True))
+    same = all(bool(torch.equal(a, b)) for a, b in pairs)
     rate = info.cumul / info.time_overall
+    rate_host = host.cumul / host.time_overall
     spread = _w_spread(sol, model.grid)
-    print(f"phase 10b: {label}: {info.outer} outer, {info.cumul} inner "
-          f"(phase 4: {base['outer']} / {base['cumul']}), obj "
+    pre_ms = _time_pre(dev, run)
+    round_ms = info.time_overall * 1e3 / info.outer
+    print(f"phase 10b: {label}, fused: {info.outer} outer, {info.cumul} "
+          f"inner (phase 4: {base['outer']} / {base['cumul']}), obj "
           f"{info.objval!r} (rel diff to phase 4's "
-          f"{abs(info.objval - base['obj']) / abs(base['obj']):.2e}); "
-          f"{len(ids)} sorted rounds; rows in the grid's order (largest "
-          f"spread of a bus's w copies {spread:.3e}); ADMM loop "
-          f"{info.time_overall:.3f} s = {rate:.2f} inner it/s (phase 4: "
-          f"{base['rate']:.2f}); launches {launches}")
+          f"{abs(info.objval - base['obj']) / abs(base['obj']):.2e}); host "
+          f"loop {host.outer} / {host.cumul} with {len(ids)} sorted rounds, "
+          f"{len(pairs)} solution tensors bit-identical: {same}, the same "
+          f"last line order: {bool(torch.equal(last, ids[-1]))}; rows in "
+          f"the grid's order (largest spread of a bus's w copies "
+          f"{spread:.3e}); ADMM loop {info.time_overall:.3f} s = {rate:.2f} "
+          f"inner it/s (phase 4 fused: {base['rate']:.2f}; sorted host "
+          f"loop: {rate_host:.2f}), build {info.time_build * 1e3:.1f} ms, "
+          f"pool {info.graph_pool_bytes / 2**20:.1f} MiB; outer prestep "
+          f"with the sort {pre_ms:.4f} "
+          f"{'device' if on_card else 'host'} ms per round (an outer round "
+          f"{round_ms:.3f} ms); launches {launches}")
+    for k in _INFO_FIELDS:
+        _check(getattr(info, k) == getattr(host, k),
+               f"{label}: {k} fused {getattr(info, k)!r} host "
+               f"{getattr(host, k)!r}")
+    _check(same, f"{label}: the fused solution differs from the host's")
+    _check(len(ids) == info.outer - 1, f"{label}: a round was not sorted")
+    _check(bool(torch.equal(last, ids[-1])),
+           f"{label}: the fused loop's last line order differs")
     _check(info.outer == base["outer"], f"{label}: outer {info.outer}")
     _check(abs(info.cumul - base["cumul"]) <= 0.02 * base["cumul"],
            f"{label}: cumul {info.cumul}")
@@ -1719,11 +1880,15 @@ def _sorted_solve(dev, model, sol, label: str, base: dict,
            f"{label}: obj {info.objval!r}")
     _check(spread < 1e-12, f"{label}: rows out of order ({spread})")
     if on_card:
-        _check(launches["tron_alm_branch"] == info.cumul
-               and launches["bus_scatter"] == 2 * info.cumul,
+        _check(launches["tron_alm_branch"] == info.cumul + WARMUP
+               and launches["bus_scatter"] == 2 * (info.cumul + WARMUP)
+               and launches["graph_loop"] == _loop_trips(info),
                f"{label}: launches {launches}")
-    return dict(launches=launches, rate=rate, outer=info.outer,
-                cumul=info.cumul, obj=info.objval, ids=ids, sol=sol)
+    return dict(launches=launches, rate=rate, rate_host=rate_host,
+                outer=info.outer, cumul=info.cumul, obj=info.objval,
+                ids=ids, sol=sol, pre_ms=pre_ms, round_ms=round_ms,
+                build_ms=info.time_build * 1e3,
+                pool_mib=info.graph_pool_bytes / 2**20)
 
 
 def _time_sorted(dev, label: str, batch, opts, check_plain: bool) -> dict:
@@ -1767,8 +1932,9 @@ def _time_sorted(dev, label: str, batch, opts, check_plain: bool) -> dict:
 
 def phase10b_sort(dev, data, mp_data, mp_loads, T: int, on_card: bool,
                   base: dict) -> dict:
-    """Line sorting: phase 4's configuration with ``sort_lines=True``
-    against phase 4's ``base``; the scatter held against its plain version
+    """Line sorting: phase 4's configuration with ``sort_lines=True``,
+    fused against the sorted host loop and phase 4's ``base``
+    (``_sorted_solve``); the scatter held against its plain version
     over the CSR of every sorted round's line order; the branch kernel's
     steady-state time in the driver's order and sorted; then the kernel
     alone on phase 2's batch and on the multi-period path's, each sorted by
@@ -1784,11 +1950,8 @@ def phase10b_sort(dev, data, mp_data, mp_loads, T: int, on_card: bool,
     out = {}
     par = Parameters(sort_lines=True, **kw)
     model = M.build_model(data, par, device=dev)
-    sol0 = M.init_solution(model, MAIN_KW["rho_pq"], MAIN_KW["rho_va"])
-    out["sorted"] = _sorted_solve(dev, model, sol0, "sort_lines=True",
-                                  base, on_card)
-    _check(len(out["sorted"]["ids"]) == out["sorted"]["outer"] - 1,
-           "sort_lines: a round was not sorted")
+    out["sorted"] = _sorted_solve(dev, model, "sort_lines=True", base,
+                                  on_card)
 
     # the scatter over each sorted round's CSR, on phase 2's perturbed
     # state moved into that round's order, against its plain version and
@@ -2053,7 +2216,8 @@ def main_runs(dev, big, mp_data, mp_loads, T: int) -> dict:
 def phase11_fused(dev, big, mp_data, mp_loads, T: int, on_card: bool,
                   case9_outer=None, qp_iters=None) -> dict:
     """The fused drivers against the host loops on the configurations of
-    phases 4-8, 10a's mixed solve and the case9 pins of phase 3 (a
+    phases 4-8, 10a's mixed solve, 10b's sorted solve, 9a's mesh of one
+    rank and the case9 pins of phase 3 (a
     rehearsal may cut the case9 solves to ``case9_outer`` outer iterations
     and the case9 QP to ``qp_iters``)."""
     import exaadmm_tpu_torch as E
@@ -2072,6 +2236,28 @@ def phase11_fused(dev, big, mp_data, mp_loads, T: int, on_card: bool,
     for label, call in main_runs(dev, big, mp_data, mp_loads, T).items():
         out[label] = _fused_pair(dev, label, call, one, on_card,
                                  two_level=label != "phase 6")
+    # 10b's sorted solve, whose driver the interface module chooses, and
+    # 9a's solve over a mesh of one rank
+    from exaadmm_tpu_torch.interface import solve_acopf as iface
+    from exaadmm_tpu_torch.models.acopf import model as M
+    from exaadmm_tpu_torch.utils.environment import Parameters
+
+    smodel = M.build_model(big, Parameters(sort_lines=True, **{
+        k: MAIN_KW[k] for k in ("outer_iterlim", "inner_iterlim",
+                                "outer_eps", "verbose")}), device=dev)
+
+    def sorted_call():
+        return iface.two_level_driver(smodel)(smodel, M.init_solution(
+            smodel, MAIN_KW["rho_pq"], MAIN_KW["rho_va"]))
+
+    out["phase 10b sorted"] = _fused_pair(
+        dev, "phase 10b sorted", sorted_call, lambda r: [(r[1], r[0])],
+        on_card)
+    with _one_rank_mesh(dev, on_card) as mesh:
+        out["phase 9a mesh"] = _fused_pair(
+            dev, "phase 9a mesh", lambda: E.solve_acopf(
+                big.case, data=big, mesh=mesh, device=dev, **MAIN_KW),
+            one, on_card)
     data9 = opf_loaddata(CASE9, verbose=0)
     va = np.zeros(data9.nbus)
     va[data9.line_from] = fx.line_var[4]
@@ -2396,8 +2582,25 @@ def main() -> int:
                               device=dev)
         profile_main(dev, "phase 8", two_level_hooks(model),
                      M.init_solution(model, 3e3, 3e5), ("primres",))
+        # phase 4's solve fused, then sorted (10b) and over a mesh of one
+        # rank (9a), then phases 5-8: a long profiled run can leave the
+        # profiler's later sessions short of device activities
         runs = main_runs(dev, big, mp_data, mp_loads, T)
-        for label in ("phase 4", "phase 5", "phase 6", "phase 7", "phase 8"):
+        profile_fused(dev, "phase 4", runs["phase 4"])
+        import exaadmm_tpu_torch as E
+        from exaadmm_tpu_torch.algorithms.admm_two_level import \
+            two_level_driver
+        model = M.build_model(big, Parameters(sort_lines=True, **{
+            k: MAIN_KW[k] for k in ("outer_iterlim", "inner_iterlim",
+                                    "outer_eps", "verbose")}), device=dev)
+        driver = two_level_driver(model)
+        profile_fused(dev, "phase 10b sorted", lambda: E.SolveResult(
+            big, model, *driver(model, M.init_solution(
+                model, MAIN_KW["rho_pq"], MAIN_KW["rho_va"]))))
+        with _one_rank_mesh(dev, True) as mesh:
+            profile_fused(dev, "phase 9a mesh", lambda: E.solve_acopf(
+                big.case, data=big, mesh=mesh, device=dev, **MAIN_KW))
+        for label in ("phase 5", "phase 6", "phase 7", "phase 8"):
             profile_fused(dev, label, runs[label])
     if "--solve" in sys.argv[1:]:
         solve_to_tolerance(dev, big)

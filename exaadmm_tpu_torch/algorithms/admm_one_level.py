@@ -14,14 +14,17 @@ single-level dual residual).
 ``admm_one_level`` is the host loop: the condition is tested before each
 iteration on scalars that start at inf, and each iteration reads back one
 stacked tensor of (mismatch, dualres); it is the verbose path and the one a
-mesh takes (``one_level_driver``). ``admm_one_level_fused`` is the JAX
-package's ``_one_level_while``: the whole solve as one loop on the device, a
-CUDA graph with one conditional WHILE node around the captured iteration
-(``ops/graph_loop.py``) on the card, the same iteration under a host
-``while`` on its flag tensor on the CPU; ``solve_prep`` stays outside the
-loop, as JAX hoists it. The two give the same bits. ``make_one_level_solver``
+gloo mesh on the card takes (``one_level_driver``). ``admm_one_level_fused``
+is the JAX package's ``_one_level_while``: the whole solve as one loop on the
+device, a CUDA graph with one conditional WHILE node around the captured
+iteration (``ops/graph_loop.py``) on the card, the same iteration under a
+host ``while`` on its flag tensor on the CPU; ``solve_prep`` stays outside
+the loop, as JAX hoists it. The two give the same bits. ``make_one_level_solver``
 builds the loop once for a model and reuses it for every solve of the same
-shapes (each solve's constants go into the loop's static buffers).
+shapes (each solve's constants go into the loop's static buffers). Under a
+mesh (``parallel/sharding.py::run_sharded``) the fused solver runs on the
+rank's local model and its iteration's two all-reduces go into the loop's
+graph as NCCL work, JAX ``make_sharded_one_level``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import time
 import torch
 
 from ..ops import graph_loop
+from ..parallel import sharding
 from ..utils.environment import IterationInformation
 from .carry import Carry
 
@@ -140,9 +144,12 @@ def one_level_body(model, c: Carry, outer_tol: float) -> None:
 
 class OneLevelSolver:
     """The one-level ADMM of one model as one device-resident loop
-    (``make_one_level_solver``); call it as ``solver(sol, info) -> (sol,
-    info)``.
+    (``make_one_level_solver``); call it as ``solver(sol, info, model) ->
+    (sol, info)``.
 
+    The solver runs the model its first call gives (by default the one it
+    was made with; under a mesh, the rank's local model) and refuses a mesh
+    whose collectives a graph cannot hold (``sharding.graph_capturable``).
     The first call builds the carry (``algorithms/carry.py``) for ``sol``'s
     shapes and, on the card, the loop graph (``ops/graph_loop.py``); later
     calls must match them and reuse both: the solve's constants of
@@ -154,10 +161,20 @@ class OneLevelSolver:
     """
 
     def __init__(self, model):
-        self.source = model
         self.carry = self.loop = self.model = None
+        self._bind(model)
 
-    def __call__(self, sol, info: IterationInformation):
+    def _bind(self, model) -> None:
+        sharding.require_capturable(model.grid.mesh, model.grid.pgmin.device,
+                                    "admm_one_level")
+        self.source = model
+
+    def __call__(self, sol, info: IterationInformation, model=None):
+        if model is not None and model is not self.source:
+            if self.carry is not None:
+                raise ValueError("a fused solver runs the model of its first "
+                                 "call; this call gave another")
+            self._bind(model)
         src, par = self.source, self.source.par
         sqrt_d = float(src.nvar) ** 0.5
         outer_tol = sqrt_d * par.outer_eps
@@ -177,10 +194,12 @@ class OneLevelSolver:
             t0 = time.perf_counter()
             if loop is not None:
                 loop.launch()
-        if loop is None:
-            graph_loop.run_on_host(
-                (lambda: one_level_body(model, c, outer_tol),),
-                (c.v["flag"],))
+            else:
+                graph_loop.run_on_host(
+                    (lambda: one_level_body(model, c, outer_tol),),
+                    (c.v["flag"],))
+            # tensors of its own: the next solve overwrites the buffers
+            sol = c.clone().sol
         out = c.read_back(("it",) + _FLOATS, loop)
         info.time_overall = time.perf_counter() - t0
         if loop is not None:
@@ -191,8 +210,7 @@ class OneLevelSolver:
             setattr(info, k, out[k])
         converged = info.mismatch <= outer_tol and info.dualres <= dual_tol
         info.status = "Solved" if converged else "IterationLimit"
-        # tensors of its own: the next solve overwrites the buffers
-        return c.clone().sol, info
+        return sol, info
 
     def _build(self, sol, dual_tol: float, outer_tol: float):
         self.carry = c = one_level_carry(sol)
@@ -207,8 +225,10 @@ class OneLevelSolver:
 
 
 def make_one_level_solver(model) -> OneLevelSolver:
-    """The fused one-level solver of ``model``; built at its first call,
-    then reusable for any solve of the same shapes."""
+    """The fused one-level solver of ``model`` (JAX ``_one_level_while``;
+    under a mesh, called with the rank's local model, JAX
+    ``make_sharded_one_level``); built at its first call, then reusable for
+    any solve of the same shapes."""
     return OneLevelSolver(model)
 
 
@@ -216,22 +236,25 @@ def admm_one_level_fused(model, sol, info: IterationInformation | None = None,
                          run=None):
     """Run one-level ADMM as one device-resident loop; returns (sol, info)
     as ``admm_one_level`` does, bit-identical to it. ``run`` is a solver of
-    ``make_one_level_solver`` to reuse (built here if None).
-    ``info.time_overall`` is the time from the launch to the read-back; the
-    build time before it is ``info.time_build``."""
+    ``make_one_level_solver`` to reuse (built here if None), which runs
+    ``model``. ``info.time_overall`` is the time from the launch to the
+    read-back; the build time before it is ``info.time_build``."""
     info = info or IterationInformation()
     if run is None:
         run = make_one_level_solver(model)
-    return run(sol, info)
+    return run(sol, info, model=model)
 
 
 def one_level_driver(model, mesh=None):
     """The one-level driver a solve of ``model`` runs, as the JAX package's
     ``admm_one_level`` chooses: the fused loop at ``verbose == 0`` (with one
-    solver for every call of the model), the host
-    loop at ``verbose > 0``; and the host loop when ``mesh`` splits the
-    lines across ranks (ROADMAP Queue 1: the fused driver under a mesh)."""
-    if model.par.verbose > 0 or mesh is not None:
+    solver for every call of the model), also under a ``mesh`` whose
+    collectives the loop can hold (NCCL on the card, any backend on the
+    CPU; JAX ``make_sharded_one_level``); the host loop at ``verbose > 0``,
+    and for a gloo mesh on the card, whose host-staged collectives a CUDA
+    graph cannot hold (``sharding.graph_capturable``)."""
+    if model.par.verbose > 0 or not sharding.graph_capturable(
+            mesh, model.grid.pgmin.device):
         return admm_one_level
     return functools.partial(admm_one_level_fused,
                              run=make_one_level_solver(model))

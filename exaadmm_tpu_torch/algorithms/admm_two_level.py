@@ -13,8 +13,8 @@ min(inc_c*beta, cap) when ||z|| > theta*||z_prev||.
 
 ``admm_two_level`` is the host loop: it launches every hook and reads
 primres back once per inner iteration (and the outer scalars once per outer
-iteration). It is the verbose path, and the one the ``time_hooks``, mesh and
-``sort_lines`` runs take (``two_level_driver``).
+iteration). It is the verbose path, and the one the ``time_hooks`` runs and
+a gloo mesh on the card take (``two_level_driver``).
 
 ``admm_two_level_fused`` runs the whole solve as one device program, as the
 JAX package's fused driver does with an outer ``lax.while_loop`` around the
@@ -38,32 +38,43 @@ hooks' and the loop is slower. With it off (the default) the loop makes no
 extra call.
 
 With ``Parameters.sort_lines`` and a model that ``supports_line_sort``,
-each outer round of the host loop after the first starts by sorting the
-line batch by the lanes' effort in the last inner iteration
-(``lane_steps``, stable ascending, as the JAX package's
-``_sorted_inner_while``): the hooks then run on
-``model.with_line_order(ids)``, the caller's model with its lines in the
-composed order (the model knows which of its arrays are indexed by line),
-and the state is permuted with it. The sort reads nothing back. The
-solution is put back into canonical order before it is returned.
+each outer round starts by sorting the line batch by the lanes' effort in
+the last inner iteration (``lane_steps``, stable ascending, as the JAX
+package's ``_sorted_inner_while``): the hooks then run on the caller's
+model with its lines in the composed order (the model knows which of its
+arrays are indexed by line), and the state is permuted with it. The sort
+reads nothing back, and the solution is put back into canonical order
+before it is returned. The host loop skips the first round, whose steps
+are all 0, and runs each round on ``model.with_line_order(ids)``; the fused
+loop sorts every round (a stable sort of zeros is the identity, as in JAX)
+into static buffers: the composed order ``line_ids``, the last iteration's
+``lane_steps`` and a grid whose line arrays and arc CSR are those of
+``model.with_line_order(line_ids)``, which its bodies' model reads.
 
 With the lines split across ranks (``parallel/sharding.py``) every rank runs
-the host loop over its own model; the scalars read back there derive from
-all-reduced tensors and replicated data, so every rank breaks on the same
-iteration. A rank sorts its own line window, with no communication.
+the driver over its own model (``run_sharded`` hands it the rank's local
+model); the scalars that decide a break derive from all-reduced tensors and
+replicated data, so every rank breaks on the same iteration. On the card
+the fused loop's bodies capture the collectives as NCCL work into the
+loop's graph; gloo's host-staged collectives cannot be captured, so a gloo
+mesh on the card runs the host loop. A rank sorts its own line window, with
+no communication.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import time
 
 import torch
 
 from ..ops import graph_loop
+from ..parallel import sharding
 from ..utils.environment import (IterationInformation, Solution,
                                  permute_solution_lines)
+from ..utils.grid_data import LINE_FIELDS
 from .carry import Carry
 
 
@@ -199,36 +210,45 @@ _RESIDUAL = {"primres": "primres", "dualres": "dualres",
 class FusedSolver:
     """The two-level ADMM of one model as one device-resident loop
     (``make_fused_solver``); call it as ``solver(sol, info, Pd, Qd,
-    pgmin_curr, pgmax_curr) -> (sol, info)``.
+    pgmin_curr, pgmax_curr, model) -> (sol, info)``.
 
-    The first call builds the carry (``algorithms/carry.py``) for ``sol``'s
-    shapes and, on the card, the loop graph (``ops/graph_loop.py``); later
-    calls must match them. ``Pd``/``Qd`` given at the first call get static
+    The solver runs the model its first call gives (``model``; by default
+    the one it was made with): under a mesh ``run_sharded`` calls it with
+    the rank's ``local_model``, whose grid's collectives then go into the
+    loop. ``sqrt(nvar)``, which scales the tolerances, is the model's it
+    was made with, the whole grid's (a local grid keeps the global line
+    count, so the two agree). The first call builds the carry
+    (``algorithms/carry.py``) for ``sol``'s shapes and, on the card, the
+    loop graph (``ops/graph_loop.py``); later calls must match them and run
+    the same model. ``Pd``/``Qd`` given at the first call get static
     buffers, refilled on every call (None keeps the model's own loads); so
     do the pg bounds of a model that has ``pgmin_curr``. The call that
     builds puts its build time (the carry, and on the card the graph's
     warm-up, capture and instantiation) into ``info.time_build``; every
     call on the card puts the device memory the graph's bodies hold into
     ``info.graph_pool_bytes``.
+
+    It refuses a model whose lines are split over a mesh that a graph
+    cannot hold (``sharding.graph_capturable``: gloo on CUDA tensors).
     """
 
     def __init__(self, model, par=None):
-        par = par or model.par
-        grid = getattr(model, "grid", None)
-        if getattr(grid, "mesh", None) is not None:
-            raise NotImplementedError(
-                "the fused driver under a mesh (NCCL capture; JAX "
-                "make_sharded_fused_solver) is ROADMAP Queue 1: run "
-                "admm_two_level")
-        if getattr(model, "supports_line_sort", False) and par.sort_lines:
-            raise NotImplementedError(
-                "the fused driver with sort_lines is ROADMAP Queue 1: run "
-                "admm_two_level")
-        self.par = par
-        self.source = model
+        self.own_par = par is None
+        self.par = par or model.par
         self.sqrt_d = float(model.nvar) ** 0.5
-        self.outer_tol = self.sqrt_d * par.outer_eps
+        self.outer_tol = self.sqrt_d * self.par.outer_eps
         self.carry = self.loop = None
+        self._bind(model)
+
+    def _bind(self, model) -> None:
+        """Run ``model`` (its grid's mesh checked)."""
+        sharding.require_capturable(model.grid.mesh, model.grid.pgmin.device,
+                                    "admm_two_level")
+        self.source = model
+        if self.own_par:
+            self.par = model.par
+        self.sorting = bool(getattr(model, "supports_line_sort", False)
+                            and self.par.sort_lines)
 
     # ---- the loop bodies: static buffers in, static buffers out ----
     def _outer_flag(self, c: Carry):
@@ -237,12 +257,23 @@ class FusedSolver:
                               & (v["mismatch"] > self.outer_tol))
 
     def _pre(self, c: Carry):
-        """The outer prestep: outer += 1, save ||z||, inner = 0."""
+        """The outer prestep: outer += 1, save ||z||, inner = 0; with line
+        sorting, the lines ordered by the last iteration's steps (stable
+        ascending; round 1's are all 0: the identity), the state permuted
+        with them and the sorted grid refilled for the composed order."""
         v = c.v
         v["outer"].add_(1)
         v["norm_z_prev"].copy_(v["norm_z"])
         v["inner"].zero_()
         v["inner_flag"].fill_(int(self.par.inner_iterlim > 0))
+        if self.sorting:
+            reorder = torch.argsort(v["lane_steps"], stable=True)
+            ids = v["line_ids"].index_select(0, reorder)
+            v["line_ids"].copy_(ids)
+            c.store(permute_solution_lines(c.sol, reorder))
+            grid = self.source.with_line_order(ids).grid
+            for k, buf in self.line_order.items():
+                buf.copy_(getattr(grid, k))
 
     def _inner(self, c: Carry):
         """One inner iteration, then the inner flag: (inner <
@@ -261,6 +292,8 @@ class FusedSolver:
         for k, name in _RESIDUAL.items():
             v[k].copy_(scalars[name])
         v["max_cviol"].copy_(stats["max_cviol"])
+        if self.sorting:
+            v["lane_steps"].copy_(stats["lane_steps"])
         # sqrt_d / (2500 outer) as the host computes it (a Python float
         # over a tensor would be a reciprocal times sqrt_d)
         eps_pri = torch.div(self.sqrt_d_t,
@@ -297,6 +330,9 @@ class FusedSolver:
             v[k].fill_(float("inf") if k in _START_INF else 0.0)
         v["beta"].fill_(min(self.par.initial_beta, self.beta_cap))
         v["inner_flag"].zero_()
+        if self.sorting:
+            v["line_ids"].copy_(self.ids0)
+            v["lane_steps"].zero_()
         self._outer_flag(c)
 
     def _build(self, sol, info, Pd, Qd, pgmin, pgmax):
@@ -317,9 +353,22 @@ class FusedSolver:
         zero = torch.zeros((), dtype=torch.float64, device=dev)
         count = torch.zeros((), dtype=torch.int64, device=dev)
         flag = torch.zeros((), dtype=torch.int32, device=dev)
+        order = {}
+        if self.sorting:
+            # the line order and the grid the bodies read, in static
+            # buffers that each outer prestep refills: the line arrays and
+            # the arc CSR, what ``permute_lines`` moves
+            grid = self.source.grid
+            self.line_order = {k: getattr(grid, k).clone() for k in
+                               LINE_FIELDS + ("arc_bus", "arc_idx")}
+            self.model.grid = dataclasses.replace(grid, **self.line_order)
+            self.ids0 = torch.arange(grid.nline_padded, device=dev)
+            order = dict(line_ids=self.ids0,
+                         lane_steps=torch.zeros(grid.nline_padded,
+                                                dtype=torch.int32, device=dev))
         self.carry = c = Carry(sol, dict(
             {k: zero for k in _FLOATS}, **{k: count for k in _COUNTERS},
-            inner_flag=flag, outer_flag=flag))
+            inner_flag=flag, outer_flag=flag, **order))
         if dev.type != "cuda":
             return
         self._reset(c, sol, info)
@@ -331,7 +380,12 @@ class FusedSolver:
             warmup=lambda: (self._pre(w), self._inner(w), self._tail(w)))
 
     def __call__(self, sol, info: IterationInformation, Pd=None, Qd=None,
-                 pgmin_curr=None, pgmax_curr=None):
+                 pgmin_curr=None, pgmax_curr=None, model=None):
+        if model is not None and model is not self.source:
+            if self.carry is not None:
+                raise ValueError("a fused solver runs the model of its first "
+                                 "call; this call gave another")
+            self._bind(model)
         built = self.carry is None
         if built:
             t0 = time.perf_counter()
@@ -352,11 +406,17 @@ class FusedSolver:
             t0 = time.perf_counter()
             if loop is not None:
                 loop.launch()
-        if loop is None:
-            graph_loop.run_on_host(
-                (lambda: self._pre(c), lambda: self._inner(c),
-                 lambda: self._tail(c)),
-                (c.v["inner_flag"], c.v["outer_flag"]))
+            else:
+                graph_loop.run_on_host(
+                    (lambda: self._pre(c), lambda: self._inner(c),
+                     lambda: self._tail(c)),
+                    (c.v["inner_flag"], c.v["outer_flag"]))
+            # tensors of its own (the next solve overwrites the buffers),
+            # with the lines back in canonical order
+            sol = c.clone().sol
+            if self.sorting:
+                sol = permute_solution_lines(sol,
+                                             torch.argsort(c.v["line_ids"]))
         out = c.read_back(_COUNTERS + _FLOATS, loop)
         info.time_overall = time.perf_counter() - t0
         if loop is not None:
@@ -371,14 +431,14 @@ class FusedSolver:
         info.status = ("Solved" if info.mismatch <= self.outer_tol
                        else "IterationLimit")
         self.par.beta = out["beta"]
-        # tensors of its own: the next solve overwrites the buffers
-        return c.clone().sol, info
+        return sol, info
 
 
 def make_fused_solver(model, par=None) -> FusedSolver:
-    """The fused two-level solver of ``model`` (JAX ``make_fused_solver``);
-    built at its first call, then reusable for any solve of the same
-    shapes."""
+    """The fused two-level solver of ``model`` (JAX ``make_fused_solver``;
+    under a mesh, called with the rank's local model, JAX
+    ``make_sharded_fused_solver``); built at its first call, then reusable
+    for any solve of the same shapes."""
     return FusedSolver(model, par)
 
 
@@ -389,15 +449,16 @@ def admm_two_level_fused(model, sol: Solution,
     as ``admm_two_level`` does, bit-identical to it.
 
     ``run`` is a solver of ``make_fused_solver`` to reuse (built here if
-    None); the model's current ``pgmin_curr``/``pgmax_curr`` go into it with
-    ``Pd``/``Qd``. ``info.time_overall`` is the time from the launch to
-    the read-back; the build time before it is ``info.time_build``."""
+    None), which runs ``model``; the model's current
+    ``pgmin_curr``/``pgmax_curr`` go into it with ``Pd``/``Qd``.
+    ``info.time_overall`` is the time from the launch to the read-back; the
+    build time before it is ``info.time_build``."""
     info = info or IterationInformation()
     if run is None:
         run = make_fused_solver(model)
     return run(sol, info, Pd=Pd, Qd=Qd,
                pgmin_curr=getattr(model, "pgmin_curr", None),
-               pgmax_curr=getattr(model, "pgmax_curr", None))
+               pgmax_curr=getattr(model, "pgmax_curr", None), model=model)
 
 
 def two_level_driver(model, mesh=None):
@@ -406,17 +467,20 @@ def two_level_driver(model, mesh=None):
     a function ``(model, sol, info=None, Pd=None, Qd=None) -> (sol, info)``.
 
     - ``verbose == 0``: the fused driver, with one solver for every call
-      (a caller that solves the model period after period reuses its graph);
+      (a caller that solves the model period after period reuses its
+      graph), with or without ``Parameters.sort_lines``, and under a
+      ``mesh`` (called through ``run_sharded`` with the rank's local model,
+      JAX ``make_sharded_fused_solver``) whose collectives the loop can
+      hold: NCCL on the card, any backend on the CPU;
     - ``verbose > 0`` or ``Parameters.time_hooks``: the host loop (JAX's
       ``verbose >= 1`` and ``>= 2``);
-    - ``mesh`` given, or ``Parameters.sort_lines``: the host loop, in this
-      port for now (ROADMAP Queue 1: the fused driver under a mesh, whose
-      NCCL collectives a graph can hold and gloo's not, JAX
-      ``make_sharded_fused_solver``; and with the line sort, whose permuted
-      grid a graph would need in static buffers every round)."""
+    - a gloo ``mesh`` on the card: the host loop, by rule. Gloo stages every
+      collective of a CUDA tensor through pinned host memory and reduces it
+      on the host (two ranks may share one card so), which a CUDA graph
+      cannot hold (``sharding.graph_capturable``)."""
     par = model.par
-    if par.verbose > 0 or par.time_hooks or mesh is not None or (
-            par.sort_lines):
+    if par.verbose > 0 or par.time_hooks or not sharding.graph_capturable(
+            mesh, model.grid.pgmin.device):
         return admm_two_level
     return functools.partial(admm_two_level_fused,
                              run=make_fused_solver(model))

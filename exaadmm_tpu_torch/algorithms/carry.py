@@ -4,8 +4,9 @@ A loop body that the device replays reads and writes the same addresses on
 every trip, so the fused drivers keep their state in a ``Carry``: one
 buffer for each tensor of the solution record (``Solution``,
 ``SolutionMpacopf``, ``SolutionMpec``, ``SolutionQpsub``: dataclasses of
-tensors and records, walked in field order) and named 0-d buffers for the
-loop's counters, scalars and flags. A body computes the new state from
+tensors and records, walked in field order) and named buffers for the
+loop's counters, scalars and flags (0-d) and for what else a loop carries
+from trip to trip (a sorted loop's line order). A body computes the new state from
 ``carry.sol`` as the host loop does, then stores it back (``store``); after
 the loop the driver reads the scalars back in one copy (``read_back``).
 """
@@ -39,7 +40,7 @@ def rebuild(rec, tensors):
 
 class Carry:
     """Buffers for the tensors of ``template`` (cloned from it) and for the
-    0-d tensors ``scalars`` (name -> initial tensor, cloned)."""
+    tensors ``scalars`` (name -> initial tensor, cloned)."""
 
     def __init__(self, template, scalars: dict):
         self.template = template

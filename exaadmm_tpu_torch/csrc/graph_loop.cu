@@ -20,7 +20,11 @@
 //       -> tail -> set(h_out, outer_flag) }
 //
 // and of one_level:  set(h, flag) -> WHILE h { body -> set(h, flag) }.
-// A body is a child graph node (a clone of the captured graph); the handle
+// A body is a child graph node (a clone of the captured graph, in which
+// every event record and wait node has become an empty node with the same
+// edges: a conditional body refuses event nodes, and a collective captured
+// on its own stream can leave its fork and join in the body as events;
+// inside one graph the edges give the same order); the handle
 // is created on the graph that holds its WHILE node, whose first value the
 // set node before the loop gives, so every launch starts from the flags in
 // memory and not from a default. Every run of set_condition adds one to
@@ -33,6 +37,8 @@
 // this library's own (static) runtime.
 
 #include <cuda_runtime.h>
+
+#include <vector>
 
 namespace {
 
@@ -57,10 +63,65 @@ cudaError_t add_set(cudaGraph_t graph, cudaGraphNode_t* node,
   return cudaGraphAddKernelNode(node, graph, dep, dep ? 1 : 0, &p);
 }
 
+// Each event record and wait node of ``g`` (and of its child graphs)
+// replaced by an empty node with its edges; *rewritten counts them.
+cudaError_t events_to_edges(cudaGraph_t g, int* rewritten) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(g, nodes.data(), &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType t;
+    err = cudaGraphNodeGetType(nodes[i], &t);
+    if (err != cudaSuccess) break;
+    if (t == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = events_to_edges(child, rewritten);
+      continue;
+    }
+    if (t != cudaGraphNodeTypeEventRecord && t != cudaGraphNodeTypeWaitEvent) {
+      continue;
+    }
+    size_t nin = 0, nout = 0;
+    err = cudaGraphNodeGetDependencies(nodes[i], nullptr, &nin);
+    if (err == cudaSuccess) {
+      err = cudaGraphNodeGetDependentNodes(nodes[i], nullptr, &nout);
+    }
+    std::vector<cudaGraphNode_t> in(nin + 1), out(nout + 1);
+    if (err == cudaSuccess && nin > 0) {
+      err = cudaGraphNodeGetDependencies(nodes[i], in.data(), &nin);
+    }
+    if (err == cudaSuccess && nout > 0) {
+      err = cudaGraphNodeGetDependentNodes(nodes[i], out.data(), &nout);
+    }
+    cudaGraphNode_t empty;
+    if (err == cudaSuccess) {
+      err = cudaGraphAddEmptyNode(&empty, g, nin ? in.data() : nullptr, nin);
+    }
+    for (size_t j = 0; err == cudaSuccess && j < nout; ++j) {
+      err = cudaGraphAddDependencies(g, &empty, &out[j], 1);
+    }
+    if (err == cudaSuccess) err = cudaGraphDestroyNode(nodes[i]);
+    if (err == cudaSuccess) *rewritten += 1;
+  }
+  return err;
+}
+
+// A child graph node of a clone of ``child`` with its event nodes made
+// edges (``events_to_edges``).
 cudaError_t add_child(cudaGraph_t graph, cudaGraphNode_t* node,
-                      const cudaGraphNode_t* dep, void* child) {
-  return cudaGraphAddChildGraphNode(node, graph, dep, dep ? 1 : 0,
-                                    static_cast<cudaGraph_t>(child));
+                      const cudaGraphNode_t* dep, void* child,
+                      int* rewritten) {
+  cudaGraph_t copy = nullptr;
+  cudaError_t err = cudaGraphClone(&copy, static_cast<cudaGraph_t>(child));
+  if (err == cudaSuccess) err = events_to_edges(copy, rewritten);
+  if (err == cudaSuccess) {
+    err = cudaGraphAddChildGraphNode(node, graph, dep, dep ? 1 : 0, copy);
+  }
+  if (copy != nullptr) cudaGraphDestroy(copy);
+  return err;
 }
 
 // A WHILE node on ``handle`` after ``dep``; *body is the graph it runs.
@@ -116,13 +177,15 @@ int driver_version(int* version) {
 }
 
 // The outer loop around the inner one; ``pre``, ``inner`` and ``tail`` are
-// cudaGraph_t of the captured bodies (cloned here).
+// cudaGraph_t of the captured bodies (cloned here); *rewritten is the
+// number of their event nodes made edges.
 int graph_loop_two_level(void* pre, void* inner, void* tail,
                          const int* inner_flag, const int* outer_flag,
                          unsigned long long* count, int device, void** exec,
-                         int* bad_node_type) {
+                         int* bad_node_type, int* rewritten) {
   cudaGraph_t top = nullptr;
   *bad_node_type = -1;
+  *rewritten = 0;
   TRY(cudaSetDevice(device));
   TRY(cudaGraphCreate(&top, 0));
   cudaGraphConditionalHandle h_out, h_in;
@@ -134,16 +197,16 @@ int graph_loop_two_level(void* pre, void* inner, void* tail,
 
   TRY(cudaGraphConditionalHandleCreate(&h_in, outer_body, 0, 0));
   cudaGraphNode_t pre_node, inner_first, inner_loop, tail_node, outer_next;
-  TRY(add_child(outer_body, &pre_node, nullptr, pre));
+  TRY(add_child(outer_body, &pre_node, nullptr, pre, rewritten));
   TRY(add_set(outer_body, &inner_first, &pre_node, h_in, inner_flag,
               count));
   TRY(add_while(outer_body, &inner_loop, &inner_first, h_in, &inner_body));
-  TRY(add_child(outer_body, &tail_node, &inner_loop, tail));
+  TRY(add_child(outer_body, &tail_node, &inner_loop, tail, rewritten));
   TRY(add_set(outer_body, &outer_next, &tail_node, h_out, outer_flag,
               count));
 
   cudaGraphNode_t inner_node, inner_next;
-  TRY(add_child(inner_body, &inner_node, nullptr, inner));
+  TRY(add_child(inner_body, &inner_node, nullptr, inner, rewritten));
   TRY(add_set(inner_body, &inner_next, &inner_node, h_in, inner_flag,
               count));
 
@@ -152,12 +215,14 @@ int graph_loop_two_level(void* pre, void* inner, void* tail,
   return 0;
 }
 
-// One loop around ``body`` (a cudaGraph_t, cloned here).
+// One loop around ``body`` (a cudaGraph_t, cloned here), *rewritten as in
+// graph_loop_two_level.
 int graph_loop_one_level(void* body, const int* flag,
                          unsigned long long* count, int device, void** exec,
-                         int* bad_node_type) {
+                         int* bad_node_type, int* rewritten) {
   cudaGraph_t top = nullptr;
   *bad_node_type = -1;
+  *rewritten = 0;
   TRY(cudaSetDevice(device));
   TRY(cudaGraphCreate(&top, 0));
   cudaGraphConditionalHandle h;
@@ -166,7 +231,7 @@ int graph_loop_one_level(void* body, const int* flag,
   cudaGraph_t loop_body;
   TRY(add_set(top, &first, nullptr, h, flag, count));
   TRY(add_while(top, &loop, &first, h, &loop_body));
-  TRY(add_child(loop_body, &body_node, nullptr, body));
+  TRY(add_child(loop_body, &body_node, nullptr, body, rewritten));
   TRY(add_set(loop_body, &next, &body_node, h, flag, count));
   TRY(instantiate(top, exec, bad_node_type));
   cudaGraphDestroy(top);

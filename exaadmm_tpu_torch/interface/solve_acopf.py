@@ -18,8 +18,12 @@ size. Every rank gets the whole solution and the same ``info`` back.
 (``Parameters.mixed_precision``); it needs ``dtype=torch.float64``.
 
 The driver is chosen as the JAX package chooses it (``two_level_driver``):
-at ``verbose=0`` the fused driver, the whole ADMM loop on the device; at
-``verbose > 0``, and over a mesh, the host loop.
+at ``verbose=0`` the fused driver, the whole ADMM loop on the device, with
+or without a mesh (JAX ``make_sharded_fused_solver``: on the card the
+collectives go into the loop's graph as NCCL work); at ``verbose > 0`` the
+host loop. One rule is the port's own: a gloo mesh on CUDA tensors runs the
+host loop, since gloo stages each collective through pinned host memory,
+which a CUDA graph cannot hold.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ raising ``RuntimeError`` without a CUDA device; ``"cpu"`` runs the plain
 versions) and ``data`` (an already loaded or generated case). ``mesh``
 splits the lines across the ranks of a multi-process run and
 ``pad_lines_to`` pads the line batch (it defaults to the mesh size), as in
-``solve_acopf``.
+``solve_acopf``, whose driver rule it follows (``two_level_driver``): the
+fused driver at ``verbose=0``, over a mesh too, except a gloo mesh on CUDA
+tensors, which runs the host loop.
 """
 
 from __future__ import annotations

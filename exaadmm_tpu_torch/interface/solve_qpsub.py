@@ -13,7 +13,10 @@ the QP's residual loads, on the host (qpsub_admm_prepoststep_cpu.jl:16-19).
 the reference do not implement it either). ``mesh`` splits the lines across
 the ranks of a multi-process run and ``pad_lines_to`` pads the line batch
 (it defaults to the mesh size), as in ``solve_acopf``; the SQP outputs are
-computed from the gathered solution on every rank.
+computed from the gathered solution on every rank. At ``verbose=0`` the
+one-level loop runs fused on the device (``one_level_driver``), over a mesh
+too (JAX ``make_sharded_one_level``), except a gloo mesh on CUDA tensors,
+which runs the host loop.
 ``branch_backend``, ``pallas_tile`` and
 ``bus_backend`` choose between TPU code paths in the JAX package; they are
 accepted and ignored: on a CUDA device the port always runs its kernels.

@@ -21,9 +21,26 @@ graphs' memory pool, which the ``GraphLoop`` keeps alive) and reads nothing
 back. A driver older than 12.4 or a torch without ``keep_graph`` raises
 (``check_support``); nothing falls back to a host loop.
 
+Collectives. A body of a solve whose lines are split over an NCCL mesh
+calls ``torch.distributed`` collectives; their NCCL kernels are captured
+like any other work, on the communicator's own stream, forked from and
+joined to the capture stream. Three things keep that sound:
+
+- the warm-up runs every body eagerly first, on every rank in the same
+  order, so the communicator exists before any capture;
+- the capture is ``thread_local``: the process group's watchdog thread may
+  query its events while this thread captures;
+- ``csrc/graph_loop.cu`` turns every event record and wait node of a
+  captured body into an empty node with the same edges (a conditional body
+  refuses event nodes); ``rewritten`` counts them.
+
+The NCCL watchdog does not see work inside a graph: a rank that hangs
+inside the loop hangs the others until the caller's own time limit.
+
 Launch counts. A kernel wrapper counts its launches where it launches
-(``count_launch``): on the host, one per call, unless ``GraphLoop`` is
-capturing the call, which then runs at every replay of the graph. There the
+(``count_launch``; so do the collectives of ``parallel/sharding.py``): on
+the host, one per call, unless ``GraphLoop`` is capturing the call, which
+then runs at every replay of the graph. There the
 wrapper adds a node beside its kernel's that adds one to its counter on the
 device (``DeviceCounts``); ``set_condition`` adds one to its own on each
 run. A driver reads the counters back with its results and hands them to
@@ -51,12 +68,12 @@ _capturing: DeviceCounts | None = None
 _SIGS = {
     "driver_version": [ctypes.c_void_p],
     # (pre, inner, tail, inner_flag, outer_flag, count, device, exec,
-    #  bad_node_type)
+    #  bad_node_type, rewritten)
     "graph_loop_two_level": [ctypes.c_void_p] * 6 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 2,
-    # (body, flag, count, device, exec, bad_node_type)
+    + [ctypes.c_void_p] * 3,
+    # (body, flag, count, device, exec, bad_node_type, rewritten)
     "graph_loop_one_level": [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 2,
+    + [ctypes.c_void_p] * 3,
     "graph_loop_launch": [ctypes.c_void_p] * 2,
     "graph_loop_destroy": [ctypes.c_void_p],
     "graph_node_types": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int],
@@ -207,7 +224,9 @@ class GraphLoop:
     ``build_seconds`` is the time of the warm-up, the capture and the
     instantiation; ``pool_bytes`` the device memory the captured bodies
     hold (their temporaries, in one pool shared by the bodies, which run one
-    at a time), as the allocator's reserved memory grew over the capture.
+    at a time), as the allocator's reserved memory grew over the capture;
+    ``rewritten`` the event nodes of the bodies that the loop graph holds
+    as edges; ``node_types()`` the captured bodies' nodes by type.
     """
 
     def __init__(self, bodies, flags, warmup):
@@ -243,7 +262,7 @@ class GraphLoop:
         with self.counts.capturing(), torch.cuda.stream(capture):
             for body in bodies:
                 g = torch.cuda.CUDAGraph(keep_graph=True)
-                g.capture_begin(pool=pool)
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     body()
                 finally:
@@ -256,16 +275,13 @@ class GraphLoop:
         ptrs.append(ctypes.c_void_p(set_count.data_ptr()))
         exec_ = ctypes.c_void_p()
         bad = ctypes.c_int(-1)
+        rewritten = ctypes.c_int(0)
         index = dev.index if dev.index is not None else (
             torch.cuda.current_device())
-        if self.nested:
-            err = lib.graph_loop_two_level(*raw, *ptrs, index,
-                                           ctypes.byref(exec_),
-                                           ctypes.byref(bad))
-        else:
-            err = lib.graph_loop_one_level(*raw, *ptrs, index,
-                                           ctypes.byref(exec_),
-                                           ctypes.byref(bad))
+        build = (lib.graph_loop_two_level if self.nested
+                 else lib.graph_loop_one_level)
+        err = build(*raw, *ptrs, index, ctypes.byref(exec_),
+                    ctypes.byref(bad), ctypes.byref(rewritten))
         if err != 0:
             refused = (NODE_TYPES[min(bad.value, len(NODE_TYPES) - 1)]
                        if bad.value >= 0 else "none named")
@@ -274,6 +290,7 @@ class GraphLoop:
                 f"{err}: {lib.error_string(err).decode()}; refused node: "
                 f"{refused}; the bodies' nodes: {self.node_types()}")
         self.exec = exec_.value
+        self.rewritten = rewritten.value
         self._destroy = weakref.finalize(self, lib.graph_loop_destroy,
                                          self.exec)
         self.build_seconds = time.perf_counter() - t0

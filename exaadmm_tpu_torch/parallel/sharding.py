@@ -15,34 +15,56 @@ Counterpart of ``exaadmm_tpu/parallel/sharding.py``. The split is the same:
 
 The JAX package has three builders (``make_sharded_inner_loop``,
 ``make_sharded_one_level``, ``make_sharded_fused_solver``) because its loops
-live inside ``shard_map``. Here the ADMM loops run on the host, so each rank
-runs the unchanged ADMM loop over a model built on its own line window, and the
-three collapse into ``run_sharded``: cut the model and the state
-(``local_model``, ``local_solution``), run the loop, gather the state back
-(``gather_solution``). Every rank takes the same branch in the host loops
-because every scalar they read derives from all-reduced tensors and
-replicated data only. With ``Parameters.sort_lines`` each rank's loop sorts
-that rank's own line window and derives its local CSR again
-(``with_line_order`` of the ``local_model``), with no communication,
-and restores the window's order before the gather (JAX
-``make_sharded_fused_solver``'s per-shard sort).
+live inside ``shard_map``. Here each rank runs the driver it would run
+alone over a model built on its own line window, so the three collapse into
+``run_sharded``: cut the model and the state (``local_model``,
+``local_solution``), run the driver on them, gather the state back
+(``gather_solution``). Both drivers run so:
+
+- the host loop (``admm_two_level``, ``admm_one_level``) reads its scalars
+  back each iteration;
+- the fused driver (``admm_two_level_fused``, ``admm_one_level_fused``,
+  the counterparts of ``make_sharded_fused_solver`` and
+  ``make_sharded_one_level``) is handed the rank's local model by
+  ``run_sharded`` and builds its loop on it: on the card the collectives
+  of the loop bodies are captured into the loop's graph as NCCL work, on
+  the CPU the same bodies run under host loops.
+
+Every rank takes the same trips in either because every scalar that
+decides a break derives from all-reduced tensors and replicated data only;
+``sqrt(nvar)`` is the whole grid's, as the local grid keeps the global line
+count. With ``Parameters.sort_lines`` each rank sorts its own line window
+and derives its local CSR again, with no communication, and restores the
+window's order before the gather (JAX ``make_sharded_fused_solver``'s
+per-shard sort).
 
 Under the gloo backend a CUDA tensor is staged through pinned host memory:
 gloo moves host buffers, and two ranks may share one card there. Under NCCL
-the tensors are reduced where they lie.
+the tensors are reduced where they lie. A graph can hold NCCL's work but not
+gloo's staged copies and host-side reduction, so a gloo mesh over CUDA
+tensors runs the host loop (``graph_capturable``).
+
+``counts`` counts the collectives as the kernel wrappers count their
+launches (``graph_loop.count_launch``): one per call on the host, and one
+per replay, counted on the device, for a collective captured into a fused
+driver's graph; the driver hands those back after its read-back. ``log``
+gets one entry per call of a collective's Python function: a captured one
+is logged once, at its capture.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 
 import torch
 import torch.distributed as dist
 
+from ..ops import graph_loop
 from ..utils.grid_data import LINE_FIELDS, GridData, build_csr, tile_lines
 
-#: calls of each collective since the counts were last set to 0
+#: runs of each collective since the counts were last set to 0
 counts = {"all_reduce_sum": 0, "all_reduce_max": 0, "all_gather": 0}
 #: when a list, every collective appends (kind, payload shape, bytes) to it
 log: list | None = None
@@ -73,13 +95,42 @@ def make_mesh(group=None) -> Mesh:
                 backend=str(dist.get_backend(group)))
 
 
+def graph_capturable(mesh: Mesh | None, device) -> bool:
+    """Whether a fused driver's graph can hold the collectives of ``mesh``
+    on ``device``: always without a group or off the card; on the card only
+    under NCCL, since gloo stages every CUDA tensor through pinned host
+    memory and reduces it on the host."""
+    return (mesh is None or mesh.group is None
+            or torch.device(device).type != "cuda" or mesh.backend == "nccl")
+
+
+def require_capturable(mesh: Mesh | None, device, host_loop: str) -> None:
+    """Raise unless ``graph_capturable(mesh, device)``, naming the reason
+    and ``host_loop``, the driver to run instead."""
+    if not graph_capturable(mesh, device):
+        raise ValueError(
+            f"the fused driver cannot run a {mesh.backend} mesh on CUDA "
+            "tensors: gloo stages every collective through pinned host "
+            "memory and reduces it on the host, which a CUDA graph cannot "
+            f"hold; run {host_loop} (the driver choice picks it for such a "
+            "mesh)")
+
+
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
 
 
+def _count(kind: str, n: int) -> None:
+    counts[kind] += n
+
+
+#: each collective's count, as ``graph_loop.count_launch`` takes it
+_ADD = {k: functools.partial(_count, k) for k in counts}
+
+
 def _note(kind: str, x: torch.Tensor) -> None:
-    counts[kind] += 1
+    graph_loop.count_launch(_ADD[kind], kind)
     if log is not None:
         log.append((kind, tuple(x.shape), x.numel() * x.element_size()))
 
@@ -219,12 +270,15 @@ def default_pad(pad_lines_to: int, mesh: Mesh | None) -> int:
 
 
 def run_sharded(admm, model, sol, mesh: Mesh | None, **kwargs):
-    """Run ``admm(model, sol, **kwargs)`` (``admm_two_level`` or
-    ``admm_one_level``) with the lines split over
-    ``mesh``: ``model`` and ``sol`` are the whole (padded) problem, and the
-    whole solution and the same ``info`` come back on every rank. Only rank
-    0 prints; ``model.par.beta`` is set as by a one-process run. With no
-    mesh it is ``admm(model, sol, **kwargs)``."""
+    """Run ``admm(model, sol, **kwargs)`` (a driver: ``admm_two_level``,
+    ``admm_one_level``, or the fused one that ``two_level_driver`` /
+    ``one_level_driver`` give, which builds its loop on the model it is
+    first called with) with the lines split over ``mesh``: ``model`` and
+    ``sol`` are the whole (padded) problem; ``admm`` gets this rank's
+    ``local_model`` and ``local_solution``, and the whole solution and the
+    same ``info`` come back on every rank. Only rank 0 prints;
+    ``model.par.beta`` is set as by a one-process run. With no mesh it is
+    ``admm(model, sol, **kwargs)``."""
     if mesh is None:
         return admm(model, sol, **kwargs)
     par = model.par

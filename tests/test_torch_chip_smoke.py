@@ -37,6 +37,11 @@ def test_rehearsal_on_cpu(case9_path, capsys):
             == (res["main"]["outer"], res["main"]["cumul"]))
     assert res["sort"]["scatter_rel"] <= 1e-13
     assert "2 sorted rounds" in out
+    # 10b's sorted solve and 9a's mesh solve ran the fused driver, each
+    # held bit-identical to its host loop in the phase
+    assert "solution tensors bit-identical: True" in out
+    assert res["main_sorted"]["pre_ms"] > 0.0
+    assert res["main_sorted"]["rate_host"] > 0.0
     assert set(res["mixed"]) == {"kernel", "polar_kernel", "main",
                                  "with line limits", "without line limits"}
     assert set(res["sort"]["it1_periods"]) == {"ms", "ms_sorted"}
@@ -49,6 +54,7 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     assert res["main_mesh1"]["obj"] == res["main"]["obj"]
     assert res["main_mesh1"]["per_it"] == 4.0
     assert res["main_mesh1"]["bytes_per_it"] == 8 * (9 * 8 + 7 + 2 + 1)
+    assert res["main_mesh1"]["rate_host"] > 0.0
     assert res["main_2ranks"]["cumul"] == res["main"]["cumul"]
     assert res["main_2ranks"]["case9"]["cumul"] == 315
     assert "gens (3, 6), storage (1, 2)" in out   # the MPEC bus sums
@@ -85,7 +91,11 @@ def test_rehearsal_on_cpu(case9_path, capsys):
         "cumul"]
     assert res["fused"]["case9 QP (3c)"]["cumul"] == 40
     assert res["fused"]["loop"]["dx_all"] == 0.0
-    assert out.count("fused == host") == 13
+    for label, base in (("phase 10b sorted", "main_sorted"),
+                        ("phase 9a mesh", "main_mesh1")):
+        assert res["fused"][label]["cumul"] == res[base]["cumul"]
+        assert res["fused"][label]["obj"] == res[base]["obj"]
+    assert out.count("fused == host") == 15
     names = [k["name"] for k in res["kernels"]]
     assert names == ["tron_alm_branch", "tron_alm_ramp", "tron_alm_qpsub",
                      "bus_scatter", "tron_alm_polar", "graph_loop"]

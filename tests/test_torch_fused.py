@@ -322,25 +322,57 @@ def test_entry_points_pick_the_driver(how, monkeypatch):
         f"admm_one_level{suffix}"]
 
 
+def _on_card(model=None, mesh=None):
+    """A stand-in for a model on the card (the drivers read its parameters,
+    ``nvar`` and its grid's device and mesh): ``model``'s parameters, its
+    grid's mesh ``mesh``."""
+    from types import SimpleNamespace
+    return SimpleNamespace(
+        par=model.par if model is not None else Parameters(verbose=0),
+        nvar=10, grid=SimpleNamespace(
+            pgmin=SimpleNamespace(device=torch.device("cuda")), mesh=mesh))
+
+
 def test_driver_choice_rules(case9_path):
-    """time_hooks, a mesh and sort_lines keep the host loop at verbose 0
-    (ROADMAP Queue 1), and the fused solver refuses the last two."""
+    """At verbose 0 the fused drivers run line sorting and any mesh whose
+    collectives a graph can hold: NCCL on the card, any backend on the
+    CPU. verbose 1 and time_hooks keep the host loop, and so does a gloo
+    mesh on the card (its collectives are staged through host memory),
+    which the fused solvers refuse by name."""
+    from exaadmm_tpu_torch.parallel import sharding
     data = opf_loaddata(case9_path, verbose=0)
 
     def model(**par):
         return TM.build_model(data, Parameters(**dict(dict(verbose=0),
                                                       **par)))
 
-    assert two.two_level_driver(model()).func is two.admm_two_level_fused
-    for m, mesh in ((model(verbose=1), None), (model(time_hooks=True), None),
-                    (model(), object()), (model(sort_lines=True), None)):
-        assert two.two_level_driver(m, mesh) is two.admm_two_level
+    fused = two.admm_two_level_fused
+    gloo, nccl = (sharding.Mesh(group=object(), rank=0, size=2, backend=b)
+                  for b in ("gloo", "nccl"))
+    assert two.two_level_driver(model()).func is fused
+    sorted_driver = two.two_level_driver(model(sort_lines=True))
+    assert sorted_driver.func is fused
+    assert sorted_driver.keywords["run"].sorting
+    for mesh in (gloo, nccl):
+        assert two.two_level_driver(model(), mesh).func is fused
+        assert two.two_level_driver(model(sort_lines=True), mesh).func is fused
+    for m in (model(verbose=1), model(time_hooks=True)):
+        assert two.two_level_driver(m) is two.admm_two_level
+    assert two.two_level_driver(_on_card(), nccl).func is fused
+    assert two.two_level_driver(_on_card(), gloo) is two.admm_two_level
+    with pytest.raises(ValueError, match="gloo stages every collective"):
+        two.make_fused_solver(_on_card(mesh=gloo))
+    assert two.make_fused_solver(_on_card(mesh=nccl)).sorting is False
+
     q = Q.build_model(data, Parameters(verbose=0),
                       dict(zip(QP_KEYS, _qp9())))
-    assert one.one_level_driver(q).func is one.admm_one_level_fused
-    assert one.one_level_driver(q, object()) is one.admm_one_level
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        two.make_fused_solver(model(sort_lines=True))
+    fused1 = one.admm_one_level_fused
+    assert one.one_level_driver(q).func is fused1
+    assert one.one_level_driver(q, gloo).func is fused1
+    assert one.one_level_driver(_on_card(q), nccl).func is fused1
+    assert one.one_level_driver(_on_card(q), gloo) is one.admm_one_level
+    with pytest.raises(ValueError, match="gloo stages every collective"):
+        one.make_one_level_solver(_on_card(q, mesh=gloo))
 
 
 def test_launch_counts_under_replay(monkeypatch):

@@ -1,17 +1,25 @@
-"""What one rank runs in tests/test_torch_sharding.py.
+"""What one rank runs in tests/test_torch_sharding.py and
+tests/test_torch_fused_mesh.py.
 
 ``spawn_ranks`` starts the ranks as new processes, which find their function
 by module name; this module imports only torch and the port, so a rank
 starts without jax or pytest. Every function takes (mesh, device, ...) and
 returns plain numbers and numpy arrays (rank 0's go back to the test)."""
 
+import contextlib
 import os
 
 import numpy as np
 import torch
 
 import exaadmm_tpu_torch as E
+from exaadmm_tpu_torch.algorithms import admm_one_level as one
+from exaadmm_tpu_torch.algorithms import admm_two_level as two
+from exaadmm_tpu_torch.algorithms.admm_one_level import admm_one_level
 from exaadmm_tpu_torch.algorithms.admm_two_level import admm_two_level
+from exaadmm_tpu_torch.algorithms.carry import leaves
+from exaadmm_tpu_torch.interface import solve_acopf as iface_acopf
+from exaadmm_tpu_torch.interface import solve_qpsub as iface_qpsub
 from exaadmm_tpu_torch.models.acopf import model as M
 from exaadmm_tpu_torch.models.mpacopf import model as MP
 from exaadmm_tpu_torch.parallel import sharding
@@ -20,6 +28,12 @@ from exaadmm_tpu_torch.utils.checkpoint import (load_solution_sharded,
                                                 _leaves)
 from exaadmm_tpu_torch.utils.environment import Parameters
 from exaadmm_tpu_torch.utils.opfdata import load_time_series, opf_loaddata
+
+
+#: the ``IterationInformation`` fields a fused solve and its host loop agree on
+INFO_FIELDS = ("status", "outer", "inner", "cumul", "objval", "auglag",
+               "primres", "dualres", "mismatch", "norm_z_curr",
+               "norm_z_prev", "max_cviol", "eps_pri")
 
 
 def _info(info):
@@ -124,3 +138,108 @@ def sharded_checkpoint(mesh, dev, case, path):
     return dict(same=same, meta=meta, files=sorted(os.listdir(path)),
                 local_lines=sol.u.line.shape[0],
                 line=full.u.line.numpy(), cumul=info.cumul)
+
+
+@contextlib.contextmanager
+def host_loops():
+    """``solve_acopf`` and ``solve_qpsub`` with their host loops at verbose
+    0 (each interface module's driver choice, swapped)."""
+    saved = (iface_acopf.two_level_driver, iface_qpsub.one_level_driver)
+    iface_acopf.two_level_driver = lambda model, mesh=None: admm_two_level
+    iface_qpsub.one_level_driver = lambda model, mesh=None: admm_one_level
+    try:
+        yield
+    finally:
+        iface_acopf.two_level_driver, iface_qpsub.one_level_driver = saved
+
+
+@contextlib.contextmanager
+def counted(module, name: str, calls: list):
+    """``module.name`` wrapped to append ``name`` to ``calls``."""
+    fn = getattr(module, name)
+
+    def call(*args, **kwargs):
+        calls.append(name)
+        return fn(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _same(a, b) -> bool:
+    """Every tensor of two solution records bit-identical."""
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(leaves(a), leaves(b), strict=True))
+
+
+def _pair(fused, host, sol_f, sol_h, calls):
+    return dict(fused=_info(fused), host=_info(host),
+                info_equal=all(getattr(fused, k) == getattr(host, k)
+                               for k in INFO_FIELDS),
+                same=_same(sol_f, sol_h), calls=list(calls))
+
+
+def fused_against_host(mesh, dev, case, kw, qp_args=None, qp_kw=None,
+                       sort_kw=None):
+    """Over ``mesh``, each solve by the fused driver and by the host loop:
+    ``solve_acopf`` at ``kw``; with ``qp_args``, ``solve_qpsub``; with
+    ``sort_kw``, ``Parameters(sort_lines=True, **sort_kw)`` through the
+    model and ``run_sharded``. Each pair gives both infos, whether the infos
+    are equal and every tensor of the gathered solutions bit-identical, and
+    which fused drivers ran. Then the collectives of the fused loop: its
+    bodies for ``kw``'s first outer iteration on this rank's local model,
+    logged and counted, with nothing gathered."""
+    out = {}
+    calls = []
+    with counted(two, "admm_two_level_fused", calls):
+        fused = E.solve_acopf(case, mesh=mesh, device=dev, **kw)
+    with host_loops():
+        host = E.solve_acopf(case, mesh=mesh, device=dev, **kw)
+    out["acopf"] = dict(_pair(fused.info, host.info, fused.solution,
+                              host.solution, calls),
+                        gen=fused.solution.u.gen.numpy(),
+                        line=fused.solution.u.line.numpy())
+    if qp_args is not None:
+        calls = []
+        with counted(one, "admm_one_level_fused", calls):
+            fused = E.solve_qpsub(case, *qp_args, mesh=mesh, device=dev,
+                                  **qp_kw)
+        with host_loops():
+            host = E.solve_qpsub(case, *qp_args, mesh=mesh, device=dev,
+                                 **qp_kw)
+        out["qpsub"] = dict(_pair(fused.info, host.info, fused.solution,
+                                  host.solution, calls),
+                            gen=fused.solution.base.u.gen.numpy())
+    if sort_kw is not None:
+        data = opf_loaddata(case, verbose=0)
+
+        def solve(driver):
+            model = M.build_model(data, Parameters(sort_lines=True,
+                                                   **sort_kw),
+                                  pad_lines_to=mesh.size, device=dev)
+            return sharding.run_sharded(driver(model), model,
+                                        M.init_solution(model, 4e2, 4e4),
+                                        mesh)
+
+        calls = []
+        with counted(two, "admm_two_level_fused", calls):
+            sol_f, info_f = solve(lambda m: two.two_level_driver(m, mesh))
+        sol_h, info_h = solve(lambda m: admm_two_level)
+        out["sorted"] = dict(_pair(info_f, info_h, sol_f, sol_h, calls),
+                             line=sol_f.u.line.numpy())
+
+    data = opf_loaddata(case, verbose=0)
+    model = M.build_model(data, Parameters(verbose=0, outer_iterlim=1),
+                          pad_lines_to=mesh.size, device=dev)
+    sol = sharding.local_solution(M.init_solution(model, 4e2, 4e4), mesh)
+    local = sharding.local_model(model, mesh)
+    sharding.reset_counts()
+    sharding.log = []
+    _, info = two.admm_two_level_fused(local, sol)
+    log, sharding.log = sharding.log, None
+    out["collectives"] = dict(cumul=info.cumul, log=log,
+                              counts=dict(sharding.counts), nbus=data.nbus)
+    return out
