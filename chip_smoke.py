@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--profile] [--solve]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or /usr/local/cuda) and
-``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the six
-kernels of the main paths from ``exaadmm_tpu_torch/csrc`` (one nvcc process
-per source, all at once) and runs, in order:
+``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the seven
+CUDA sources of the main paths from ``exaadmm_tpu_torch/csrc`` (one nvcc
+process per source, all at once) and runs, in order:
 
 0. the card's name and power limit, and the kernels' build (seconds and the
    ``-Xptxas -v`` report); the CUDA driver's version, which must have
@@ -94,12 +94,26 @@ per source, all at once) and runs, in order:
    ``load_solution`` into a fresh ``init_solution`` on the card with every
    leaf bit-equal, then a resume with the saved beta to Solved, the
    objective in 5296-5304.5;
+4h. the ACOPF hook kernels (``csrc/acopf_hooks.cu``: generator; bus
+   values, per-bus solve, writeback; z, l, lz; the residual's two passes)
+   against their plain versions on phase 4's model after 3 inner
+   iterations, fp64 (z in fp32 too, and with beta by value): every
+   elementwise output bit-identical to the plain version and to a rerun;
+   the residual's block sums and scalars bit-identical to the torch
+   reproduction of the kernels' fixed tree and to a rerun, and within
+   1e-13 of the terms' magnitudes (1e-12 relative on the square roots) of
+   ``torch.sum``'s; each kernel's device ms per launch beside its plain
+   version's and its bound, each hook's plain and kernel forms eager and
+   captured as a graph, and an empty kernel's device ms (the launch
+   floor);
 4. the single-period main path at full size: synthetic 9241 buses, fp64,
    flat start at rho (3e3, 3e5), 3 outer iterations of at most 100 inner
    (each outer ends when primres reaches its eps, about 20 inner): inner
    iterations per second of the ADMM loop (``info.time_overall``, after the
    model is built) and of the whole call, the final mismatch and the peak
-   device memory;
+   device memory; each hook kernel launched once an inner iteration and
+   ``acopf_lz`` once an outer round, plus the warm-up's pass (so in every
+   single-period ACOPF solve below);
 5. the multi-period main path at full width: synthetic 2869 buses (4,877
    lines, 430 generators), 8 periods of the load profile
    ``synthetic_load_profile``, fp64, flat start at rho (4e2, 4e4), 3 outer
@@ -205,13 +219,16 @@ phases 4 to 8 (host time per hook, device time by kernel, idle share) and
 Each phase prints one line of numbers; any failure raises, so the script
 exits non-zero and prints no result. The line before the last is one JSON
 object with each kernel's numbers (phase 1's fp64 scatter and phase 2's,
-2b's, 2c's and 2d's fp64 batches, and phase 11's set-condition loop):
+2b's, 2c's and 2d's fp64 batches, phase 11's set-condition loop and phase
+4h's hook kernels):
 ``ms`` and ``device_ms`` the device time per launch, ``enqueue_ms`` the host's time per call, ``plain_ms`` the plain
 version's, ``bound_ms`` and ``bound_by`` the least time for the bytes and
 operations of that launch, and ``library_ms`` ``index_add_``'s device time
 for the scatter (null for the TRON instances, which no library call
 computes; the polar one's ``replaces`` names the JAX line that runs it as
-plain XLA, since no TPU kernel does); the last line is ``{"ok": true, "device": {...}}``.
+plain XLA, since no TPU kernel does, and each hook kernel's the JAX hook
+whose XLA fusions it stands for); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -278,6 +295,31 @@ KERNEL_SOURCES = {
     "graph_loop": ("exaadmm_tpu_torch/csrc/graph_loop.cu",
                    "exaadmm_tpu/algorithms/admm_two_level.py:387 "
                    "(lax.while_loop; no Pallas)"),
+    # no TPU kernel: the ACOPF hooks, which XLA fuses (``HOOK_KERNELS``)
+    "acopf_hooks": ("exaadmm_tpu_torch/csrc/acopf_hooks.cu",
+                    "exaadmm_tpu/models/acopf/kernels.py:27 "
+                    "(generator_update ... residual_update; no Pallas)"),
+}
+# the kernels of csrc/acopf_hooks.cu, each with the JAX hook whose XLA
+# fusions it stands for (no TPU kernel)
+_JK = "exaadmm_tpu/models/acopf/kernels.py"
+HOOK_KERNELS = {
+    "acopf_generator": f"{_JK}:27 (generator_update; XLA fusions, no "
+                       "Pallas)",
+    "acopf_bus_values": f"{_JK}:221 (bus_update: the arc and generator "
+                        "values; XLA fusions, no Pallas)",
+    "acopf_bus_solve": f"{_JK}:221 (bus_update: the per-bus 2x2 solve; XLA "
+                       "fusions, no Pallas)",
+    "acopf_bus_writeback": f"{_JK}:221 (bus_update: the writeback; XLA "
+                           "fusions, no Pallas)",
+    "acopf_z": f"{_JK}:395 (z_update; XLA fusions, no Pallas)",
+    "acopf_l": f"{_JK}:403 (l_update; XLA fusions, no Pallas)",
+    "acopf_lz": f"{_JK}:408 (lz_update; XLA fusions, no Pallas)",
+    "acopf_residual_partials": f"{_JK}:426 (residual_update with "
+                               "compute_objval: rp, rd, the block sums; XLA "
+                               "fusions, no Pallas)",
+    "acopf_residual_final": f"{_JK}:426 (residual_update: the six scalars; "
+                            "XLA fusions, no Pallas)",
 }
 
 
@@ -293,8 +335,10 @@ def _check(cond: bool, what: str):
 
 def _zero_launches():
     """Set every kernel's launch count to 0."""
-    from exaadmm_tpu_torch.ops import bus_cuda, graph_loop, tron_cuda
+    from exaadmm_tpu_torch.ops import acopf_cuda, bus_cuda, graph_loop, \
+        tron_cuda
     tron_cuda.launches.clear()
+    acopf_cuda.launches.clear()
     bus_cuda.launches = 0
     graph_loop.launches = 0
 
@@ -303,10 +347,12 @@ def _launches() -> dict:
     """Every kernel's launch count, by kernel name; ``graph_loop`` counts
     the fused loops' set-condition kernel (1 + 2 outer + cumul in a
     two-level solve, 1 + iterations in a one-level one)."""
-    from exaadmm_tpu_torch.ops import bus_cuda, graph_loop, tron_cuda
+    from exaadmm_tpu_torch.ops import acopf_cuda, bus_cuda, graph_loop, \
+        tron_cuda
     n = {inst.name: tron_cuda.instance_launches(inst)
          for inst in (tron_cuda.BRANCH, tron_cuda.RAMP, tron_cuda.QPSUB,
                       tron_cuda.POLAR)}
+    n.update({k: acopf_cuda.launches.get(k, 0) for k in HOOK_KERNELS})
     return dict(n, bus_scatter=bus_cuda.launches,
                 graph_loop=graph_loop.launches)
 
@@ -323,8 +369,23 @@ def _loop_trips(info, two_level: bool = True) -> int:
     return 1 + (2 * info.outer + info.cumul if two_level else info.cumul)
 
 
+def _hooks_held(label: str, launches: dict, cumul: int, outer: int,
+                warm: int = WARMUP) -> None:
+    """The hook kernels of a single-period ACOPF solve (or of solves with
+    ``cumul`` inner iterations and ``outer`` outer rounds in all) on a fused
+    solver built once: each once an inner iteration, ``acopf_lz`` once an
+    outer round (the loop's tail runs it every round), and the warm-up's
+    pass once more."""
+    want = {k: cumul + warm for k in HOOK_KERNELS}
+    want["acopf_lz"] = outer + warm
+    got = {k: launches[k] for k in HOOK_KERNELS}
+    _check(got == want, f"{label}: hook kernel launches {got}, expected "
+                        f"{want}")
+
+
 def phase0_device(dev, on_card: bool) -> dict:
-    from exaadmm_tpu_torch.ops import _build, bus_cuda, graph_loop, tron_cuda
+    from exaadmm_tpu_torch.ops import _build, acopf_cuda, bus_cuda, \
+        graph_loop, tron_cuda
     info = {"name": str(dev)}
     if on_card:
         smi = subprocess.run(
@@ -344,6 +405,7 @@ def phase0_device(dev, on_card: bool) -> dict:
         tron_cuda.library(tron_cuda.QPSUB)
         tron_cuda.library(tron_cuda.POLAR)
         bus_cuda.library()
+        acopf_cuda.library()
         # keep_graph, raw_cuda_graph and a driver with conditional nodes
         graph_loop.check_support()
         version = ctypes.c_int(0)
@@ -892,8 +954,255 @@ def phase3_case9(dev, on_card: bool) -> dict:
                f"{info.cumul} inner iterations and the warm-up")
         _check(launched['bus_scatter'] >= info.cumul,
                f"case9: {launched['bus_scatter']} bus launches")
+        _hooks_held("case9", launched, info.cumul, info.outer)
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 seconds=secs)
+
+
+def _graph_ms(dev, fn, reps: int) -> float:
+    """Device ms per replay of ``fn`` captured alone as a CUDA graph (the
+    way a fused driver's body runs it); on the CPU the host's ms per
+    call."""
+    from exaadmm_tpu_torch.utils.timing import time_ms
+    if dev.type != "cuda":
+        return time_ms(fn, dev, reps)[0]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return time_ms(g.replay, dev, reps)[0]
+
+
+def _max_abs(pairs) -> float:
+    return max(float((a - b).abs().max()) if a.numel() else 0.0
+               for a, b in pairs)
+
+
+def _hook_state(model, iters: int):
+    """``model``'s flat start after ``iters`` inner iterations and the next
+    prestep and x update, through its own hooks at beta 1e3: every block
+    of the state set."""
+    from exaadmm_tpu_torch.models.acopf import model as M
+    sol = M.init_solution(model, MAIN_KW["rho_pq"], MAIN_KW["rho_va"])
+    for it in range(1, iters + 1):
+        sol, _ = model.update_x(model.inner_prestep(sol), it)
+        sol = model.update_xbar(sol)
+        sol = model.update_z(sol, 1e3)
+        sol = model.update_l(sol, 1e3)
+        sol, _ = model.update_residual(sol, 1e3)
+        if it == 2:
+            sol = model.update_lz(sol, 1e3)
+    sol, _ = model.update_x(model.inner_prestep(sol), iters + 1)
+    return sol
+
+
+def phase4h_hooks(dev, data, on_card: bool, iters: int = 3) -> dict:
+    """The ACOPF hook kernels (``csrc/acopf_hooks.cu``) against their plain
+    versions on phase 4's model after ``iters`` inner iterations, fp64:
+    every elementwise kernel (generator; bus values, solve, writeback; z
+    with beta as a device scalar and as a float, l, lz; the residual's rp
+    and rd) bit-identical to its plain version and to itself on a second
+    run; the residual's block sums and six scalars bit-identical to the
+    torch reproduction of the kernels' fixed tree
+    (``acopf_cuda.residual_partials_plain``, ``residual_final_plain``), to
+    a second run, and to ``torch.sum``'s within 1e-13 of the sum of the
+    terms' magnitudes (objective, auglag) and 1e-12 relative (the square
+    roots); z in fp32 too. Device ms per launch of each kernel and of its
+    plain version (the host kept ahead), each hook's plain and kernel
+    forms eager and captured as a graph, the bounds of ``ops/bounds.py``,
+    and the device ms of an empty kernel."""
+    from exaadmm_tpu_torch.models.acopf import kernels as K
+    from exaadmm_tpu_torch.models.acopf import model as M
+    from exaadmm_tpu_torch.ops import acopf_cuda as A
+    from exaadmm_tpu_torch.ops import bounds, bus_cuda
+    from exaadmm_tpu_torch.utils.environment import Blocks, Parameters
+    from exaadmm_tpu_torch.utils.timing import time_ms
+
+    # the host queues every timed rep before the device starts them
+    # (``utils/timing.py``), and the card's launch queue holds about a
+    # thousand: a plain version, which launches up to ~120 kernels a call,
+    # is timed over 4 reps, a kernels' hook (at most 5) over 100
+    reps, hook_reps, plain_reps = (200, 100, 4) if on_card else (2, 2, 1)
+    model = M.build_model(data, Parameters(verbose=0), device=dev)
+    gd = model.grid
+    sol = _hook_state(model, iters)
+    dtype = gd.pgmin.dtype
+    bt = torch.tensor(1e3, dtype=dtype, device=dev)
+    ngen, nline, nbus = gd.ngen, gd.nline_padded, gd.nbus
+    nb = A.residual_blocks(ngen, nline)
+    u, v, z, l, rho, lz = sol.u, sol.v, sol.z, sol.l, sol.rho, sol.lz
+
+    def gen_plain():
+        return K.generator_update(u.gen, v.gen, z.gen, l.gen, rho.gen,
+                                  model.pgmin_curr, model.pgmax_curr,
+                                  gd.qgmin, gd.qgmax, model.c2_eff,
+                                  model.c1_eff, gd.baseMVA)
+
+    def gen_kernel():
+        return A.generator_update(u.gen, v.gen, z.gen, l.gen, rho.gen,
+                                  model.pgmin_curr, model.pgmax_curr,
+                                  gd.qgmin, gd.qgmax, gd.c2, gd.c1,
+                                  gd.baseMVA, obj_scale=model.par.obj_scale)
+
+    arcs_p = K.bus_arc_values(u, z, l, rho, gd)
+    gens_p = K.bus_gen_values(u, z, l, rho)
+    agg = bus_cuda.bus_scatter(arcs_p, gd.arc_bus, gd.arc_ptr, gd.arc_idx)
+    gsum = bus_cuda.bus_scatter(gens_p, gd.gen_bus, gd.gen_ptr, gd.gen_idx)
+    wtm_p = K.bus_solve(agg, gsum, gd, gd.Pd, gd.Qd)
+    rp_p, rd_p, sc_p = K.residual_update(sol, gd, bt)
+    _, _, part_p = A.residual_partials_plain(sol, gd)
+
+    def blocks_of(b):
+        return [b.gen, b.line]
+
+    # (kernel, plain, its outputs as a list of tensors)
+    cases = {
+        "acopf_generator": (gen_kernel, gen_plain, lambda r: [r]),
+        "acopf_bus_values": (
+            lambda: A.bus_values(u, z, l, rho, gd),
+            lambda: (K.bus_arc_values(u, z, l, rho, gd),
+                     K.bus_gen_values(u, z, l, rho)), list),
+        "acopf_bus_solve": (lambda: A.bus_solve(agg, gsum, gd, gd.Pd, gd.Qd),
+                            lambda: K.bus_solve(agg, gsum, gd, gd.Pd, gd.Qd),
+                            lambda r: [r]),
+        "acopf_bus_writeback": (
+            lambda: A.bus_writeback(u, z, l, rho, wtm_p, gd),
+            lambda: K.bus_writeback(u, z, l, rho, wtm_p, gd), blocks_of),
+        "acopf_z": (lambda: A.z_update(u, v, l, rho, lz, bt),
+                    lambda: K.z_update(u, v, l, rho, lz, bt), blocks_of),
+        "acopf_l": (lambda: A.l_update(z, lz, bt),
+                    lambda: K.l_update(z, lz, bt), blocks_of),
+        "acopf_lz": (lambda: A.lz_update(z, lz, bt, 1e12),
+                     lambda: K.lz_update(z, lz, bt, 1e12), blocks_of),
+        "acopf_residual_partials": (
+            lambda: A.residual_partials(sol, gd),
+            lambda: A.residual_partials_plain(sol, gd),
+            lambda r: blocks_of(r[0]) + blocks_of(r[1]) + [r[2]]),
+        "acopf_residual_final": (
+            lambda: A.residual_final(part_p[:A.LINE_SUMS],
+                                     part_p[A.LINE_SUMS:], bt),
+            lambda: A.residual_final_plain(part_p[:A.LINE_SUMS],
+                                           part_p[A.LINE_SUMS:], bt),
+            lambda r: [r]),
+    }
+    # beta by value (the host loop's float) and the fp32 instance of z
+    sol32 = sol.to(torch.float32)
+    extra = {
+        "acopf_z, beta a float": (
+            lambda: A.z_update(u, v, l, rho, lz, 1e3),
+            lambda: K.z_update(u, v, l, rho, lz, 1e3), blocks_of),
+        "acopf_z f32": (
+            lambda: A.z_update(sol32.u, sol32.v, sol32.l, sol32.rho,
+                               sol32.lz, bt.float()),
+            lambda: K.z_update(sol32.u, sol32.v, sol32.l, sol32.rho,
+                               sol32.lz, bt.float()), blocks_of),
+        "acopf_bus_update (the hook)": (
+            lambda: A.bus_update(u, z, l, rho, gd),
+            lambda: K.bus_update(u, z, l, rho, gd), blocks_of),
+    }
+    out = {}
+    for name, (kern, plain, outs) in {**cases, **extra}.items():
+        got, again, ref = outs(kern()), outs(kern()), outs(plain())
+        _sync(dev)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, ref))
+        rerun = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        _check(same and rerun, f"phase 4h: {name}: bit-identical to the "
+                               f"plain version {same}, to a rerun {rerun}")
+        if name not in cases:
+            print(f"phase 4h: {name}: bit-identical to its plain version "
+                  f"and to a rerun")
+            continue
+        ms, enq = time_ms(kern, dev, reps)
+        plain_ms, plain_enq = time_ms(plain, dev, plain_reps)
+        nbytes = bounds.hook_bytes(
+            name, ngen, nline, nbus, 8, nb,
+            scalar_tensor=name in ("acopf_z", "acopf_l", "acopf_lz",
+                                   "acopf_residual_final"))
+        bound_ms, bound_by = bounds.bound(
+            nbytes["total"], bounds.hook_ops(name, ngen, nline, nbus, nb))
+        out[name] = dict(ms=ms, enqueue_ms=enq, plain_ms=plain_ms,
+                         plain_enqueue_ms=plain_enq, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes["total"],
+                         max_abs_err=_max_abs(zip(got, ref)))
+        print(f"phase 4h: {name}: bit-identical to its plain version and to "
+              f"a rerun; device ms per launch {ms:.5f} (plain "
+              f"{plain_ms:.5f}), bound {bound_ms:.5f} ({bound_by}, "
+              f"{nbytes['total']} B); host enqueue ms per call {enq:.5f} "
+              f"(plain {plain_enq:.5f})")
+
+    # the residual's scalars against torch.sum: 1e-12 relative on the
+    # square roots; objval and auglag within 1e-13 of their terms'
+    # magnitudes
+    sc_k = A.residual_update(sol, gd, bt)[2]
+    m = gd.line_mask[:, None]
+    rp = rp_p
+    pg = u.gen[:, 0] * gd.baseMVA
+    obj_mag = torch.sum((gd.c2 * (pg * pg)).abs() + (gd.c1 * pg).abs()
+                        + gd.c0.abs())
+
+    def mag(a, b):
+        return (torch.sum((a.gen * b.gen).abs())
+                + torch.sum((a.line * b.line * m).abs()))
+
+    rr = Blocks(gen=rp.gen * rp.gen, line=rp.line * rp.line)
+    aug_mag = (obj_mag + mag(lz, z) + 0.5 * bt * mag(z, z) + mag(l, rp)
+               + 0.5 * mag(rho, rr))
+    worst = {}
+    for k in A.SCALARS:
+        a, b = float(sc_k[k]), float(sc_p[k])
+        if k == "objval":
+            err, lim = abs(a - b), 1e-13 * float(obj_mag)
+        elif k == "auglag":
+            err, lim = abs(a - b), 1e-13 * float(aug_mag)
+        else:
+            err, lim = abs(a - b), 1e-12 * abs(b)
+        _check(err <= lim, f"phase 4h: residual {k} {a!r} against torch.sum's"
+                           f" {b!r}: {err:.3e} > {lim:.3e}")
+        worst[k] = err
+    out["acopf_residual_final"]["max_abs_err"] = max(worst.values())
+    print("phase 4h: residual scalars against torch.sum's: "
+          + ", ".join(f"{k} {worst[k]:.3e}" for k in A.SCALARS)
+          + f" (objval within 1e-13 x {float(obj_mag):.4e}, auglag within "
+          f"1e-13 x {float(aug_mag):.4e}, the square roots 1e-12 relative)")
+
+    # each hook whole: the plain form (the old hook) and the kernels' form,
+    # eager and captured as a graph
+    hooks = {
+        "x (generator)": (gen_plain, gen_kernel),
+        "xbar": (lambda: K.bus_update(u, z, l, rho, gd),
+                 lambda: A.bus_update(u, z, l, rho, gd)),
+        "z": (lambda: K.z_update(u, v, l, rho, lz, bt),
+              lambda: A.z_update(u, v, l, rho, lz, bt)),
+        "l": (lambda: K.l_update(z, lz, bt),
+              lambda: A.l_update(z, lz, bt)),
+        "lz": (lambda: K.lz_update(z, lz, bt, 1e12),
+               lambda: A.lz_update(z, lz, bt, 1e12)),
+        "residual": (lambda: K.residual_update(sol, gd, bt),
+                     lambda: A.residual_update(sol, gd, bt)),
+    }
+    out["hooks"] = {}
+    for name, (plain, kern) in hooks.items():
+        r = dict(plain_eager=time_ms(plain, dev, plain_reps)[0],
+                 plain_graph=_graph_ms(dev, plain, reps),
+                 kernel_eager=time_ms(kern, dev, hook_reps)[0],
+                 kernel_graph=_graph_ms(dev, kern, reps))
+        out["hooks"][name] = r
+        print(f"phase 4h: hook {name}: device ms plain {r['plain_eager']:.5f}"
+              f" eager, {r['plain_graph']:.5f} in a graph; kernels "
+              f"{r['kernel_eager']:.5f} eager, {r['kernel_graph']:.5f} in a "
+              f"graph")
+    floor = None
+    if on_card:
+        floor = time_ms(lambda: A.launch_floor(dev), dev, reps)[0]
+    out["floor_ms"] = floor
+    print(f"phase 4h: {data.case} ({nbus} buses, {nline} lines, {ngen} gens),"
+          f" {iters} inner iterations in; an empty kernel's device ms per "
+          f"launch: {'not measured on the CPU' if floor is None else f'{floor:.5f}'}")
+    return out
 
 
 def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
@@ -933,8 +1242,10 @@ def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
         lane = "tron_alm_branch" if use_linelimit else "tron_alm_polar"
         _check(launches[lane] == info.cumul + WARMUP
                and sum(launches.values()) == launches[lane]
-               + launches["bus_scatter"] + launches["graph_loop"],
+               + launches["bus_scatter"] + launches["graph_loop"]
+               + sum(launches[k] for k in HOOK_KERNELS),
                f"{label}: TRON launches {launches}")
+        _hooks_held(label, launches, info.cumul, info.outer)
         _check(launches["graph_loop"] == _loop_trips(info),
                f"{label}: loop launches {launches}")
         _check(launches["bus_scatter"] == 2 * (info.cumul + WARMUP),
@@ -1158,6 +1469,7 @@ def phase9a_mesh_one_rank(dev, data, on_card: bool, base: dict) -> dict:
                and launches["bus_scatter"] == 2 * (info.cumul + WARMUP)
                and launches["graph_loop"] == _loop_trips(info),
                f"mesh of one rank: launches {launches}")
+        _hooks_held("mesh of one rank", launches, info.cumul, info.outer)
     return dict(launches=launches, rate=rate, rate_host=rate_host,
                 outer=info.outer, cumul=info.cumul, obj=info.objval,
                 per_it=per_it, bytes_per_it=nbytes,
@@ -1272,6 +1584,7 @@ def phase3d_case9_polar(dev, on_card: bool) -> dict:
                and launches["tron_alm_branch"] == 0,
                f"case9 polar: launches {launches} for {info.cumul} inner "
                f"iterations")
+        _hooks_held("case9 polar", launches, info.cumul, info.outer)
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 seconds=secs)
 
@@ -1554,6 +1867,8 @@ def phase3f_case9_rolling_projection(dev, on_card: bool) -> dict:
         _check(launches["tron_alm_branch"] == total + WARMUP,
                f"case9 rolling: launches {launches} for {total} inner "
                f"iterations and the warm-up")
+        _hooks_held("case9 rolling", launches, total,
+                    sum(i.outer for i in infos))
 
     res = E.solve_acopf(CASE9, rho_pq=4e2, rho_va=4e4, outer_eps=2e-5,
                         outer_iterlim=25, use_projection=True, verbose=0,
@@ -1739,6 +2054,7 @@ def phase10a_mixed(dev, data, on_card: bool, base: dict,
                and "tron_alm_branch_f64" not in entries
                and launches["bus_scatter"] == 2 * (info.cumul + WARMUP),
                f"mixed path: launches {entries} {launches}")
+        _hooks_held("mixed path", launches, info.cumul, info.outer)
     out["main"] = dict(launches=launches, rate=rate, outer=info.outer,
                        cumul=info.cumul, obj=info.objval)
 
@@ -1884,6 +2200,7 @@ def _sorted_solve(dev, model, label: str, base: dict,
                and launches["bus_scatter"] == 2 * (info.cumul + WARMUP)
                and launches["graph_loop"] == _loop_trips(info),
                f"{label}: launches {launches}")
+        _hooks_held(label, launches, info.cumul, info.outer)
     return dict(launches=launches, rate=rate, rate_host=rate_host,
                 outer=info.outer, cumul=info.cumul, obj=info.objval,
                 ids=ids, sol=sol, pre_ms=pre_ms, round_ms=round_ms,
@@ -2078,10 +2395,19 @@ def _fused_pair(dev, label: str, call, periods, on_card: bool,
                                   f"the set-condition kernel: {lh}")
     if on_card:
         # every kernel of the host loop launches a fixed number of times
-        # an inner iteration, which the warm-up launches once more
+        # an inner iteration, which the warm-up launches once more; but
+        # ``acopf_lz``, which the host loop launches in every outer round
+        # that did not solve and the fused loop's tail in every round
+        outers = sum(i.outer for i, _ in fused)
+        solved = sum(i.status == "Solved" for i, _ in fused)
+        acopf = lh["acopf_z"] > 0
         want = {k: n + WARMUP * n // cumul for k, n in lh.items()}
         want["graph_loop"] = trips
-        _check(all(n % cumul == 0 for n in lh.values()) and lf == want,
+        want["acopf_lz"] = outers + WARMUP if acopf else 0
+        _check(lh["acopf_lz"] == (outers - solved if acopf else 0),
+               f"phase 11 {label}: host loop lz launches {lh}")
+        _check(all(n % cumul == 0 for k, n in lh.items() if k != "acopf_lz")
+               and lf == want,
                f"phase 11 {label}: launches fused {lf}, host {lh}, "
                f"expected fused {want}")
     rate_f = cumul / sum(i.time_overall for i, _ in fused)
@@ -2428,7 +2754,8 @@ def profile_main(dev, label: str, hooks, sol, readback, warmup: int = 5,
     # the 12 largest, then the port's own kernels wherever they rank
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     own = [kv for kv in ranked[12:]
-           if "tron_alm" in kv[0] or "bus_scatter" in kv[0]]
+           if "tron_alm" in kv[0] or "bus_scatter" in kv[0]
+           or "_kernel<" in kv[0]]
     for name, (t, n) in ranked[:12] + own:
         print(f"profile {label}:   {t:9.4f} ms x{n:5.1f}  {name[:100]}")
     return dict(wall_ms=wall_ms, hook_ms=hook_ms, busy_ms=busy_ms,
@@ -2484,6 +2811,7 @@ def run(device, big_data, mp_data, mp_loads, T: int,
     results["case9_rolling"] = phase3f_case9_rolling_projection(dev, on_card)
     results["case118"] = phase3g_case118(dev, on_card, case118_outer)
     results["checkpoint"] = phase3h_checkpoint(dev, on_card)
+    results["hooks"] = phase4h_hooks(dev, big_data, on_card)
     results["main"] = phase4_main(dev, big_data, on_card)
     results["main_mp"] = phase5_mpacopf(dev, *mp)
     results["main_qp"] = phase6_qpsub(dev, big_data, on_card)
@@ -2529,6 +2857,17 @@ def run(device, big_data, mp_data, mp_loads, T: int,
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
+                     "device_ms": r["ms"], "enqueue_ms": r["enqueue_ms"]})
+    for name, replaces in HOOK_KERNELS.items():
+        r = results["hooks"][name]
+        kern.append({"name": name, "route": "cuda",
+                     "source": KERNEL_SOURCES["acopf_hooks"][0],
+                     "replaces": replaces,
+                     "launches": sum(results[m]["launches"][name]
+                                     for m in main_runs),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None,
                      "device_ms": r["ms"], "enqueue_ms": r["enqueue_ms"]})
     results["kernels"] = kern
     return results

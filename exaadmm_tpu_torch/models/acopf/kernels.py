@@ -9,6 +9,11 @@ Counterpart of ``exaadmm_tpu/models/acopf/kernels.py``:
   through ``ops/bus_cuda.py`` (the hand-written deterministic scatter on the
   GPU, ``index_add_`` on the CPU), the writeback is gathers,
 - z / l / lz / residual updates: elementwise, plus norms.
+
+These are the plain versions of the hook kernels of ``ops/acopf_cuda.py``
+(``csrc/acopf_hooks.cu``), which ``ModelAcopf`` calls: there a CPU tensor
+runs them, and the card's kernels are held bit-identical to them. The
+multi-period, QP-subproblem and MPEC models call them directly.
 """
 
 from __future__ import annotations
@@ -119,11 +124,6 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
     ``ramp`` blends the next period's ramp coupling into the pg rows
     (``_gen_p``); None is the single-period update.
     """
-    fr, to, gb = gd.line_from, gd.line_to, gd.gen_bus
-    zL, lL, rL = z.line, l.line, rho.line
-    uG, zG, lG, rG = u.gen, z.gen, l.gen, rho.gen
-    uL = u.line
-
     if Pd is None:
         Pd = gd.Pd
     if Qd is None:
@@ -134,7 +134,17 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
     agg = all_reduce_sum(
         _sum_into_buses(bus_arc_values(u, z, l, rho, gd), gd.arc_bus,
                         gd.arc_ptr, gd.arc_idx), gd.mesh)
-    uz = uL + zL
+    # generator contributions, one scatter for the four sums
+    gsum = _sum_into_buses(bus_gen_values(u, z, l, rho, ramp), gd.gen_bus,
+                           gd.gen_ptr, gd.gen_idx)
+    return bus_writeback(u, z, l, rho, bus_solve(agg, gsum, gd, Pd, Qd), gd,
+                         ramp)
+
+
+def bus_solve(agg, gsum, gd: GridData, Pd, Qd) -> torch.Tensor:
+    """The per-bus 2x2 solve of ``bus_update``: the (..., nbus, 4) rows
+    [wi, ti, mu1, mu2] from the (..., nbus, 8) arc sums ``agg`` and the
+    (..., nbus, 4) generator sums ``gsum``."""
     common_wi = agg[..., 0]
     common_ti = agg[..., 1]
     rhosum_wi = agg[..., 2]
@@ -150,11 +160,6 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
     safe_rhosum_ti = torch.where(rhosum_ti > 0, rhosum_ti, one)
     common_wi = common_wi / safe_rhosum_wi
 
-    # generator contributions, one scatter for the four sums
-    uzG = uG + zG
-    gen_p_num, gen_p_den = _gen_p(u, z, l, rho, ramp)
-    gsum = _sum_into_buses(bus_gen_values(u, z, l, rho, ramp), gb,
-                           gd.gen_ptr, gd.gen_idx)
     rhs1, rhs2, inv_rho_pg, inv_rho_qg = gsum.unbind(-1)
 
     rhs1 = rhs1 - Pd / gd.baseMVA
@@ -176,9 +181,19 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
 
     wi = common_wi + (gd.YshR * mu1 - gd.YshI * mu2) / safe_rhosum_wi
     ti = common_ti / safe_rhosum_ti
+    return torch.stack([wi, ti, mu1, mu2], dim=-1)
 
-    # writeback: consensus copies for every attached component
-    wtm = torch.stack([wi, ti, mu1, mu2], dim=-1)
+
+def bus_writeback(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, wtm,
+                  gd: GridData, ramp=None) -> Blocks:
+    """The writeback of ``bus_update``: the consensus copies for every
+    attached component, gathered from the buses' rows of ``wtm``."""
+    fr, to, gb = gd.line_from, gd.line_to, gd.gen_bus
+    uL, zL, lL, rL = u.line, z.line, l.line, rho.line
+    uG, zG, lG, rG = u.gen, z.gen, l.gen, rho.gen
+    uz = uL + zL
+    uzG = uG + zG
+    gen_p_num, gen_p_den = _gen_p(u, z, l, rho, ramp)
     g_fr = wtm[..., fr, :]
     g_to = wtm[..., to, :]
     g_gb = wtm[..., gb, :]

@@ -12,10 +12,10 @@ import copy
 
 import torch
 
+from ...ops import acopf_cuda
 from ...utils.environment import Blocks, BranchALMState, Parameters, Solution
 from ...utils.grid_data import GridData, build_grid_data, permute_lines
 from ...utils.opfdata import OPFData
-from . import kernels
 from .branch import branch_update
 
 
@@ -57,17 +57,19 @@ class ModelAcopf:
     def c1_eff(self):
         return self.grid.c1 * self.par.obj_scale
 
-    # ---- hooks called by the ADMM driver ----
+    # ---- hooks called by the ADMM driver: the closed-form ones go through
+    # ``ops/acopf_cuda.py`` (the hand-written kernels on the card, the
+    # plain functions of ``kernels.py`` on the CPU) ----
     def inner_prestep(self, sol: Solution) -> Solution:
         return sol.replace(z_prev=sol.z)
 
     def update_x(self, sol: Solution, inner_iter):
         """x update: closed-form generators + the branch TRON/ALM batch."""
         gd = self.grid
-        u_gen = kernels.generator_update(
+        u_gen = acopf_cuda.generator_update(
             sol.u.gen, sol.v.gen, sol.z.gen, sol.l.gen, sol.rho.gen,
             self.pgmin_curr, self.pgmax_curr, gd.qgmin, gd.qgmax,
-            self.c2_eff, self.c1_eff, gd.baseMVA,
+            gd.c2, gd.c1, gd.baseMVA, obj_scale=self.par.obj_scale,
         )
         u_line, alm, stats = branch_update(
             sol, gd, self.par, inner_iter, use_linelimit=self.use_linelimit)
@@ -75,23 +77,23 @@ class ModelAcopf:
                            branch_alm=alm), stats
 
     def update_xbar(self, sol: Solution, Pd=None, Qd=None) -> Solution:
-        v = kernels.bus_update(sol.u, sol.z, sol.l, sol.rho, self.grid,
-                               Pd=Pd, Qd=Qd)
+        v = acopf_cuda.bus_update(sol.u, sol.z, sol.l, sol.rho, self.grid,
+                                  Pd=Pd, Qd=Qd)
         return sol.replace(v=v)
 
     def update_z(self, sol: Solution, beta) -> Solution:
-        return sol.replace(z=kernels.z_update(sol.u, sol.v, sol.l, sol.rho,
-                                              sol.lz, beta))
+        return sol.replace(z=acopf_cuda.z_update(sol.u, sol.v, sol.l,
+                                                 sol.rho, sol.lz, beta))
 
     def update_l(self, sol: Solution, beta) -> Solution:
-        return sol.replace(l=kernels.l_update(sol.z, sol.lz, beta))
+        return sol.replace(l=acopf_cuda.l_update(sol.z, sol.lz, beta))
 
     def update_lz(self, sol: Solution, beta) -> Solution:
-        return sol.replace(lz=kernels.lz_update(sol.z, sol.lz, beta,
-                                                self.par.MAX_MULTIPLIER))
+        return sol.replace(lz=acopf_cuda.lz_update(sol.z, sol.lz, beta,
+                                                   self.par.MAX_MULTIPLIER))
 
     def update_residual(self, sol: Solution, beta):
-        rp, rd, scalars = kernels.residual_update(sol, self.grid, beta)
+        rp, rd, scalars = acopf_cuda.residual_update(sol, self.grid, beta)
         return sol.replace(rp=rp, rd=rd), scalars
 
 

@@ -119,3 +119,67 @@ def tron_ops(name: str, minor_iters, alm_iters, B: int) -> float:
     _, _, _, _, obj, _ = _PROBLEMS[name]
     return (float(minor_iters) * step_ops(name)
             + float(alm_iters) * alm_ops(name) + B * (obj + 2))
+
+
+# the ACOPF hook kernels (``csrc/acopf_hooks.cu``): per kernel, the values
+# read and written as multiples of (N, the elements of one ADMM vector,
+# 2 ngen + 8 nline; ngen; nline; nbus; the residual's blocks), by hand from
+# the source: the bytes each input and output must move once. The
+# writeback reads columns 0-3 of the line blocks only; index arrays are
+# int64 (counted apart, in ``_HOOK_INDEX``).
+_HOOK_VALUES = {
+    #                    (N, ngen, nline, nbus, nblocks): read, then write
+    "acopf_z": ((5, 0, 0, 0, 0), (1, 0, 0, 0, 0)),
+    "acopf_l": ((2, 0, 0, 0, 0), (1, 0, 0, 0, 0)),
+    "acopf_lz": ((2, 0, 0, 0, 0), (1, 0, 0, 0, 0)),
+    "acopf_generator": ((0, 14, 0, 0, 0), (0, 2, 0, 0, 0)),
+    "acopf_bus_values": ((0, 8, 33, 0, 0), (0, 4, 16, 0, 0)),
+    "acopf_bus_solve": ((0, 0, 0, 16, 0), (0, 0, 0, 4, 0)),
+    "acopf_bus_writeback": ((0, 8, 16, 4, 0), (0, 2, 8, 0, 0)),
+    "acopf_residual_partials": ((7, 3, 1, 0, 0), (2, 0, 0, 0, 15)),
+    "acopf_residual_final": ((0, 0, 0, 0, 15), (0, 0, 0, 0, 0)),
+}
+# int64 index values read: (per nline, per ngen)
+_HOOK_INDEX = {"acopf_bus_writeback": (2, 1)}
+# operations per unit, by hand from the source (each add, subtract,
+# multiply, divide, negation and square root one; comparisons none):
+# (per N element, per generator, per line, per bus, per block, fixed)
+_HOOK_OPS = {
+    "acopf_z": (7, 0, 0, 0, 0, 0),
+    "acopf_l": (3, 0, 0, 0, 0, 0),
+    "acopf_lz": (2, 0, 0, 0, 0, 0),
+    "acopf_generator": (0, 19, 0, 0, 0, 0),
+    "acopf_bus_values": (0, 9, 40, 0, 0, 0),
+    "acopf_bus_solve": (0, 0, 0, 38, 0, 0),
+    "acopf_bus_writeback": (0, 9, 16, 0, 0, 0),
+    # rp, rd, rp - z and 8 products per element, the mask's 7 multiplies
+    # on a line element, the 7 adds its terms need; the objective's 7 per
+    # generator
+    "acopf_residual_partials": (0, 45, 208, 0, 0, 0),
+    "acopf_residual_final": (0, 0, 0, 0, 15, 20),
+}
+
+
+def hook_bytes(name: str, ngen: int, nline: int, nbus: int, itemsize: int,
+               nblocks: int = 0, scalar_tensor: bool = False) -> dict:
+    """Bytes of one launch of the hook kernel ``name`` on ``ngen``
+    generators, ``nline`` (padded) lines and ``nbus`` buses; ``nblocks``
+    the residual's blocks; ``scalar_tensor`` a beta read from the device."""
+    n = 2 * ngen + 8 * nline
+    units = (n, ngen, nline, nbus, nblocks)
+    read, write = (sum(a * b for a, b in zip(c, units))
+                   for c in _HOOK_VALUES[name])
+    per_line, per_gen = _HOOK_INDEX.get(name, (0, 0))
+    parts = {"read": read * itemsize + (per_line * nline + per_gen * ngen)
+             * 8 + (itemsize if scalar_tensor else 0),
+             "write": write * itemsize}
+    parts["total"] = parts["read"] + parts["write"]
+    return parts
+
+
+def hook_ops(name: str, ngen: int, nline: int, nbus: int,
+             nblocks: int = 0) -> int:
+    """Operations of one launch of the hook kernel ``name``."""
+    n = 2 * ngen + 8 * nline
+    return sum(a * b for a, b in zip(_HOOK_OPS[name],
+                                     (n, ngen, nline, nbus, nblocks, 1)))

@@ -122,7 +122,7 @@ class DeviceCounts:
     ``add`` of a slot is the host count it belongs to: ``fold`` hands it
     the slot's value as read back."""
 
-    SLOTS = 16
+    SLOTS = 32
 
     def __init__(self, device):
         self.values = torch.zeros(self.SLOTS, dtype=torch.int64,

@@ -28,9 +28,18 @@ def test_rehearsal_on_cpu(case9_path, capsys):
                          qp_fused_iters=40)
     out = capsys.readouterr().out
     for phase in ("1", "1b", "1c", "2", "2b", "2c", "2d", "3", "3b", "3c",
-                  "3d", "3e", "3f", "3g", "3h", "4", "5", "6", "7", "8",
-                  "9a", "9b", "10a", "10b", "11"):
+                  "3d", "3e", "3f", "3g", "3h", "4h", "4", "5", "6", "7",
+                  "8", "9a", "9b", "10a", "10b", "11"):
         assert f"phase {phase}:" in out
+    # the hook kernels against their plain versions (trivially exact on the
+    # CPU, where the wrappers run the plain versions), the residual's tree
+    # against torch.sum, the hooks eager and in a graph
+    assert set(res["hooks"]) == set(chip_smoke.HOOK_KERNELS) | {
+        "hooks", "floor_ms"}
+    assert set(res["hooks"]["hooks"]) == {"x (generator)", "xbar", "z",
+                                          "l", "lz", "residual"}
+    assert "acopf_z f32: bit-identical" in out
+    assert res["hooks"]["acopf_residual_final"]["max_abs_err"] == 0.0
     # mixed precision and line sorting at phase 4's configuration
     assert res["main_mixed"]["outer"] == res["main"]["outer"]
     assert ((res["main_sorted"]["outer"], res["main_sorted"]["cumul"])
@@ -98,7 +107,8 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     assert out.count("fused == host") == 15
     names = [k["name"] for k in res["kernels"]]
     assert names == ["tron_alm_branch", "tron_alm_ramp", "tron_alm_qpsub",
-                     "bus_scatter", "tron_alm_polar", "graph_loop"]
+                     "bus_scatter", "tron_alm_polar", "graph_loop",
+                     *chip_smoke.HOOK_KERNELS]
     for k in res["kernels"]:
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -112,7 +122,8 @@ def test_rehearsal_on_cpu(case9_path, capsys):
         with open(os.path.join(ROOT, path)) as f:
             text = f.read().splitlines()[int(line) - 1]
         # a TPU kernel's function, the JAX call that runs the polar batch
-        # as plain XLA, or the JAX loop that the graph's loop replaces
+        # as plain XLA, the JAX loop that the graph's loop replaces, or the
+        # JAX hook whose XLA fusions a hook kernel stands for
         assert {"tron_alm_polar": "tron_batched(",
                 "graph_loop": "lax.while_loop("}.get(k["name"],
                                                     "def ") in text
