@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile] [--solve]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or /usr/local/cuda) and
-``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the seven
+``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the eight
 CUDA sources of the main paths from ``exaadmm_tpu_torch/csrc`` (one nvcc
 process per source, all at once) and runs, in order:
 
@@ -59,6 +59,17 @@ process per source, all at once) and runs, in order:
    line limits;
 2d. the polar TRON kernel (the branch without line limits, no
    constraints) against its plain version on phase 2's grid and setup;
+2f. the branch update's pack, unpack and stats kernels
+   (``csrc/branch_io.cu``) against their plain versions, every output bit
+   for bit and each kernel twice, on phase 2's state with u and the ALM
+   state drawn from a numpy seed (line limits and polar; fp64, fp32 and
+   mixed precision; inner iteration 1 as an int and 3 as a 0-d tensor),
+   the 39,016-lane batch of synthetic 2869 x 8 periods, a random line
+   order with inactive lanes, and each of 2e's rank windows; each kernel's
+   device ms, enqueue ms and bound, the plain versions' device ms, the
+   pack and unpack together eager and in a graph, plain and kernels, and
+   ``branch_update`` captured whole: exactly 4 kernel nodes (the pack,
+   the TRON kernel, the unpack, the stats);
 3. case9 end to end through ``solve_acopf(..., device="cuda")``, fp64:
    Solved, objective and dispatch in the known bands, outer/cumul beside the
    pins 25/1087 (within 1 outer and 2 %), one TRON launch per inner
@@ -206,28 +217,32 @@ those nine runs. Phases 4-8, 9a, 10a and 10b run the fused driver: a
 wrapper called while its loop body is captured counts on the device, once
 per replay, and the solve reads those counters back with its scalars; the
 warm-up before the capture counts as any launch (``ops/graph_loop.py``).
-9b runs the host loop.
+9b runs the host loop. Every phase that solves with line subproblems
+checks one pack, one unpack and one stats launch (``csrc/branch_io.cu``)
+per branch or polar TRON launch.
 
 ``--profile`` adds a breakdown of one iteration of the configurations of
 phases 4 to 8 (host time per hook, device time by kernel, idle share) and
 ``utils/profiling.py::profile_iteration``'s device time per hook of phase
-4's model, then each of those phases' fused solve, 10b's sorted one and
-9a's over a mesh of one rank, from its launch to its last device activity
-(device busy time and idle share per iteration);
+4's model, then each of those phases' fused solve (phase 8's right after
+phase 4's), 10b's sorted one and 9a's over a mesh of one rank, from its
+launch to its last device activity (device busy time, idle share and
+device activities per iteration);
 ``--solve`` adds the time to tolerance of phase 4's configuration.
 
 Each phase prints one line of numbers; any failure raises, so the script
 exits non-zero and prints no result. The line before the last is one JSON
 object with each kernel's numbers (phase 1's fp64 scatter and phase 2's,
-2b's, 2c's and 2d's fp64 batches, phase 11's set-condition loop and phase
-4h's hook kernels):
+2b's, 2c's and 2d's fp64 batches, phase 11's set-condition loop, phase
+4h's hook kernels and phase 2f's branch I/O kernels):
 ``ms`` and ``device_ms`` the device time per launch, ``enqueue_ms`` the host's time per call, ``plain_ms`` the plain
 version's, ``bound_ms`` and ``bound_by`` the least time for the bytes and
 operations of that launch, and ``library_ms`` ``index_add_``'s device time
 for the scatter (null for the TRON instances, which no library call
 computes; the polar one's ``replaces`` names the JAX line that runs it as
-plain XLA, since no TPU kernel does, and each hook kernel's the JAX hook
-whose XLA fusions it stands for); the last line is ``{"ok": true,
+plain XLA, since no TPU kernel does, each hook kernel's the JAX hook
+whose XLA fusions it stands for, and each branch I/O kernel's the JAX
+code around the solver call whose fusions it stands for); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -299,6 +314,11 @@ KERNEL_SOURCES = {
     "acopf_hooks": ("exaadmm_tpu_torch/csrc/acopf_hooks.cu",
                     "exaadmm_tpu/models/acopf/kernels.py:27 "
                     "(generator_update ... residual_update; no Pallas)"),
+    # no TPU kernel: the branch update around the solver call, which XLA
+    # fuses (``BRANCH_IO_KERNELS``)
+    "branch_io": ("exaadmm_tpu_torch/csrc/branch_io.cu",
+                  "exaadmm_tpu/models/acopf/branch.py:297 "
+                  "(branch_update around the solver call; no Pallas)"),
 }
 # the kernels of csrc/acopf_hooks.cu, each with the JAX hook whose XLA
 # fusions it stands for (no TPU kernel)
@@ -323,6 +343,22 @@ HOOK_KERNELS = {
 }
 
 
+# the kernels of csrc/branch_io.cu, each with the JAX code whose XLA
+# fusions it stands for (no TPU kernel)
+_JB = "exaadmm_tpu/models/acopf/branch.py"
+BRANCH_IO_KERNELS = {
+    "branch_pack": f"{_JB}:255 (_branch_params, with _warm_start_x0 :270, "
+                   "the ALM start :366-368 and mixed precision's casts :335; "
+                   "XLA fusions, no Pallas)",
+    "branch_unpack": f"{_JB}:297 (branch_update after the solver call: the "
+                     "casts :342, the flows and the masked writeback "
+                     ":490-505, the stats' terms :508-536; XLA fusions, no "
+                     "Pallas)",
+    "branch_stats": f"{_JB}:297 (branch_update: the stats' sums and maximum "
+                    ":508-529; XLA fusions, no Pallas)",
+}
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -335,10 +371,11 @@ def _check(cond: bool, what: str):
 
 def _zero_launches():
     """Set every kernel's launch count to 0."""
-    from exaadmm_tpu_torch.ops import acopf_cuda, bus_cuda, graph_loop, \
-        tron_cuda
+    from exaadmm_tpu_torch.ops import acopf_cuda, branch_cuda, bus_cuda, \
+        graph_loop, tron_cuda
     tron_cuda.launches.clear()
     acopf_cuda.launches.clear()
+    branch_cuda.launches.clear()
     bus_cuda.launches = 0
     graph_loop.launches = 0
 
@@ -347,12 +384,13 @@ def _launches() -> dict:
     """Every kernel's launch count, by kernel name; ``graph_loop`` counts
     the fused loops' set-condition kernel (1 + 2 outer + cumul in a
     two-level solve, 1 + iterations in a one-level one)."""
-    from exaadmm_tpu_torch.ops import acopf_cuda, bus_cuda, graph_loop, \
-        tron_cuda
+    from exaadmm_tpu_torch.ops import acopf_cuda, branch_cuda, bus_cuda, \
+        graph_loop, tron_cuda
     n = {inst.name: tron_cuda.instance_launches(inst)
          for inst in (tron_cuda.BRANCH, tron_cuda.RAMP, tron_cuda.QPSUB,
                       tron_cuda.POLAR)}
     n.update({k: acopf_cuda.launches.get(k, 0) for k in HOOK_KERNELS})
+    n.update({k: branch_cuda.launches.get(k, 0) for k in BRANCH_IO_KERNELS})
     return dict(n, bus_scatter=bus_cuda.launches,
                 graph_loop=graph_loop.launches)
 
@@ -383,9 +421,20 @@ def _hooks_held(label: str, launches: dict, cumul: int, outer: int,
                         f"{want}")
 
 
+def _branch_io_launches(label: str, launches: dict) -> None:
+    """The branch update's kernels: one pack, one unpack and one stats pass
+    for each launch of the branch or polar TRON kernel, and at least one
+    (the plain path of ``branch_update`` launches none of them)."""
+    tron = launches["tron_alm_branch"] + launches["tron_alm_polar"]
+    got = {k: launches[k] for k in BRANCH_IO_KERNELS}
+    _check(tron > 0 and got == {k: tron for k in BRANCH_IO_KERNELS},
+           f"{label}: branch I/O launches {got} for {tron} branch TRON "
+           f"launches")
+
+
 def phase0_device(dev, on_card: bool) -> dict:
-    from exaadmm_tpu_torch.ops import _build, acopf_cuda, bus_cuda, \
-        graph_loop, tron_cuda
+    from exaadmm_tpu_torch.ops import _build, acopf_cuda, branch_cuda, \
+        bus_cuda, graph_loop, tron_cuda
     info = {"name": str(dev)}
     if on_card:
         smi = subprocess.run(
@@ -406,6 +455,7 @@ def phase0_device(dev, on_card: bool) -> dict:
         tron_cuda.library(tron_cuda.POLAR)
         bus_cuda.library()
         acopf_cuda.library()
+        branch_cuda.library()
         # keep_graph, raw_cuda_graph and a driver with conditional nodes
         graph_loop.check_support()
         version = ctypes.c_int(0)
@@ -663,6 +713,220 @@ def phase2d_polar(dev, data, on_card: bool) -> dict:
         out[key] = _tron_vs_plain("phase 2d: tron_alm_polar",
                                   "tron_alm_polar", kernel, plain, act,
                                   dtype, dev)
+    return out
+
+
+def _branch_io_state(sol, seed: int = 1):
+    """``sol`` with its line rows of u perturbed by N(0, 0.2) and its ALM
+    state drawn (lam1, lam2 N(0, 1), mu uniform in [10, 1000]) from numpy
+    seed ``seed``, so the warm start's clamps bind on both sides and every
+    input of the pack matters."""
+    rng = np.random.default_rng(seed)
+    u = sol.u.line
+    B = u.shape[0]
+
+    def t(a):
+        return torch.as_tensor(a, dtype=u.dtype, device=u.device)
+
+    alm = sol.branch_alm
+    return sol.replace(
+        u=sol.u.replace(line=u + t(rng.normal(0, 0.2, (B, 8)))),
+        branch_alm=alm.replace(lam1=t(rng.normal(0, 1, B)),
+                               lam2=t(rng.normal(0, 1, B)),
+                               mu=t(rng.uniform(10, 1e3, B))))
+
+
+def _branch_io_held(label: str, sol, gd, par, it, use_linelimit: bool,
+                    dev) -> dict:
+    """The pack, the TRON kernel on its batch, the unpack and the stats on
+    one batch: the three branch I/O kernels twice each against their plain
+    versions (``branch_pack_plain``, ``branch_unpack_plain``), every output
+    bit-identical to the plain version's and to the rerun's."""
+    from exaadmm_tpu_torch.models.acopf import branch
+    from exaadmm_tpu_torch.ops import branch_cuda, tron_cuda
+
+    out_dtype = sol.u.line.dtype
+    mixed = par.mixed_precision and out_dtype == torch.float64
+    solve = torch.float32 if mixed else out_dtype
+    args = (sol, gd, par, it, use_linelimit, solve)
+    got, again = branch_cuda.branch_pack(*args), branch_cuda.branch_pack(*args)
+    ref = branch.branch_pack_plain(*args)
+    *batch, act = got
+    if use_linelimit:
+        inst, opts = tron_cuda.BRANCH, branch.branch_tolerances(par, solve)
+    else:
+        inst, opts = tron_cuda.POLAR, branch.polar_tolerances(par, solve)
+    res = tron_cuda.tron_alm_packed(inst, *batch, active0=act, **opts)
+    uargs = (res, sol, gd, act, use_linelimit, out_dtype)
+
+    def flat(r):
+        return [r[0], r[1].lam1, r[1].lam2, r[1].mu, r[2], r[3]]
+
+    ugot = flat(branch_cuda.branch_unpack(*uargs))
+    uagain = flat(branch_cuda.branch_unpack(*uargs))
+    uref = flat(branch.branch_unpack_plain(*uargs))
+    _sync(dev)
+    pairs = {"pack": (got, again, ref), "unpack": (ugot, uagain, uref)}
+    for what, (a, b, r) in pairs.items():
+        same = all(x.dtype == y.dtype and bool(torch.equal(x, y))
+                   for x, y in zip(a, r))
+        rerun = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+        _check(same and rerun, f"phase 2f: {label}: {what} bit-identical to "
+                               f"the plain version {same}, to a rerun {rerun}")
+    inactive = int((act == 0).sum())
+    B = sol.u.line.shape[0]
+    print(f"phase 2f: {label}: B={B} ({inactive} inactive), pack, unpack "
+          f"and stats bit-identical to their plain versions and to a rerun; "
+          f"stats {[float(x) for x in ugot[-1]]}")
+    floats = list(zip([*got[:-1], *ugot[:4]], [*ref[:-1], *uref[:4]]))
+    return dict(err=_max_abs(floats), stats_err=_max_abs([(ugot[5],
+                                                           uref[5])]),
+                res=res, act=act, inactive=inactive)
+
+
+def phase2f_branch_io(dev, data, mp_data, mp_loads, T: int,
+                      on_card: bool) -> dict:
+    """The branch update's pack, unpack and stats kernels
+    (``csrc/branch_io.cu``) against their plain versions, every output bit
+    for bit, each kernel twice: synthetic 9241's first-iteration state
+    (phase 2's, with u and the ALM state drawn from numpy seed 1 so the
+    warm start's clamps bind), with and without line limits, fp64, fp32
+    and mixed precision, at inner iteration 1 (an int) and 3 (a 0-d
+    tensor); the 39,016-lane batch of synthetic 2869 x 8 periods; a random
+    line order of the grid padded to 15,712 lines (2 inactive lanes); each
+    of phase 2e's rank windows. Then, fp64 with line limits: each kernel's
+    device ms per launch and the host's enqueue ms, the bound of
+    ``ops/bounds.py``, the plain versions' device ms, the pack and unpack
+    together eager and captured as a graph, plain and kernels, and the
+    nodes of ``branch_update`` captured whole (on the card: exactly the
+    pack, the TRON kernel, the unpack and the stats, no other node)."""
+    from exaadmm_tpu_torch.models.acopf import branch
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.ops import bounds, branch_cuda, graph_loop
+    from exaadmm_tpu_torch.utils.environment import (Parameters,
+                                                     permute_solution_lines)
+    from exaadmm_tpu_torch.utils.timing import time_ms
+
+    f64, f32 = torch.float64, torch.float32
+    it3 = torch.tensor(3, dtype=torch.int64, device=dev)
+    types = {"f64": (f64, False), "f32": (f32, False), "mixed": (f64, True)}
+    n = 0
+    err = stats_err = 0.0
+
+    def held(*a):
+        nonlocal n, err, stats_err
+        r = _branch_io_held(*a, dev)
+        n += 1
+        err, stats_err = max(err, r["err"]), max(stats_err, r["stats_err"])
+        return r
+
+    base = None
+    for key, (dtype, mixed) in types.items():
+        par = Parameters(verbose=0, tron_step_cap=50, mixed_precision=mixed)
+        for ll in (True, False):
+            model, sol = _it1_state(dev, data, dtype, par, use_linelimit=ll)
+            sol = _branch_io_state(sol)
+            inst = "line limits" if ll else "polar"
+            for it in (1, it3):
+                r = held(f"{data.case} {key} {inst} inner_iter {int(it)}"
+                         f"{' (a tensor)' if torch.is_tensor(it) else ''}",
+                         sol, model.grid, par, it, ll)
+            if key == "f64" and ll:
+                base = (model, sol, par, r)
+        mp_model = _mp_model(dev, mp_data, mp_loads, T, dtype, par)
+        flat = _branch_io_state(mp_model.flat_lines(MP.init_solution(
+            mp_model, 4e2, 4e4).acopf))
+        held(f"{mp_data.case} x {T} periods {key} line limits", flat,
+             mp_model.grid_T, par, it3, True)
+    par = Parameters(verbose=0, tron_step_cap=50)
+    model, sol = _it1_state(dev, data, f64, par, pad=32)
+    ids = torch.as_tensor(np.random.default_rng(2).permutation(
+        model.grid.nline_padded), device=dev)
+    sorted_model = model.with_line_order(ids)
+    sorted_sol = permute_solution_lines(_branch_io_state(sol), ids)
+    for ll in (True, False):
+        held(f"{data.case} f64 {'line limits' if ll else 'polar'} in a "
+             f"random line order", sorted_sol, sorted_model.grid, par, it3,
+             ll)
+    model, sol, par, r = base
+    for rank, local, lsol in _rank_views(model, sol):
+        held(f"{data.case} f64 line limits rank {rank} of {RANKS}", lsol,
+             local.grid, par, it3, True)
+
+    # the kernels' device ms at synthetic 9241, fp64 with line limits
+    reps, plain_reps = (200, 10) if on_card else (2, 1)
+    gd, res, act = model.grid, r["res"], r["act"]
+    B = gd.nline_padded
+    args = (sol, gd, par, it3, True, f64)
+    uargs = (res, sol, gd, act, True, f64)
+    part = branch_cuda.unpack_partials(*uargs)[3] if on_card else None
+    act_b = act != 0
+    kernels = {
+        "branch_pack": (lambda: branch_cuda.branch_pack(*args),
+                        lambda: branch.branch_pack_plain(*args)),
+        "branch_unpack": (lambda: branch_cuda.unpack_partials(*uargs),
+                          lambda: branch.branch_unpack_plain(*uargs)),
+        "branch_stats": (lambda: branch_cuda.branch_stats(part, gd.nline),
+                         lambda: branch.branch_stats_plain(res, gd, act_b)),
+    }
+    out = {}
+    for name, (kern, plain) in kernels.items():
+        if not on_card:   # the kernels' own launches need the card
+            kern = plain
+        ms, enq = time_ms(kern, dev, reps)
+        plain_ms, plain_enq = time_ms(plain, dev, plain_reps)
+        nbytes = bounds.branch_io_bytes(name, B, 6, 8,
+                                        inactive=r["inactive"])
+        bound_ms, bound_by = bounds.bound(
+            nbytes["total"], bounds.branch_io_ops(name, B, 6))
+        out[name] = dict(ms=ms, enqueue_ms=enq, plain_ms=plain_ms,
+                         plain_enqueue_ms=plain_enq, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes["total"],
+                         max_abs_err=stats_err if name == "branch_stats"
+                         else err)
+        print(f"phase 2f: {name}: device ms per launch {ms:.5f} (plain "
+              f"{plain_ms:.5f}), bound {bound_ms:.5f} ({bound_by}, "
+              f"{nbytes['total']} B); host enqueue ms per call {enq:.5f} "
+              f"(plain {plain_enq:.5f})")
+
+    def plain_io():
+        branch.branch_pack_plain(*args)
+        branch.branch_unpack_plain(*uargs)
+
+    def kernel_io():
+        branch_cuda.branch_pack(*args)
+        branch_cuda.branch_unpack(*uargs)
+
+    io = dict(plain_eager=time_ms(plain_io, dev, plain_reps)[0],
+              plain_graph=_graph_ms(dev, plain_io, reps),
+              kernel_eager=time_ms(kernel_io, dev, reps)[0],
+              kernel_graph=_graph_ms(dev, kernel_io, reps))
+    out["io"] = io
+    print(f"phase 2f: pack and unpack together, device ms: plain "
+          f"{io['plain_eager']:.5f} eager, {io['plain_graph']:.5f} in a "
+          f"graph; kernels {io['kernel_eager']:.5f} eager, "
+          f"{io['kernel_graph']:.5f} in a graph")
+    census = {}
+    if on_card:
+        for label, ll, mixed in (("line limits", True, False),
+                                 ("polar", False, False),
+                                 ("mixed line limits", True, True)):
+            p = Parameters(verbose=0, tron_step_cap=50,
+                           mixed_precision=mixed)
+            branch.branch_update(sol, gd, p, it3, ll)   # loads the kernels
+            _sync(dev)
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(g):
+                branch.branch_update(sol, gd, p, it3, ll)
+            census[label] = graph_loop.node_types(g)
+            _check(census[label] == {"kernel": 4},
+                   f"phase 2f: branch_update ({label}) captured as "
+                   f"{census[label]}, not the 4 kernels")
+        print(f"phase 2f: branch_update captured whole: {census} (the pack, "
+              f"the TRON kernel, the unpack, the stats)")
+    out.update(cases=n, census=census)
+    print(f"phase 2f: {n} batches held; max |diff| {err!r}, stats "
+          f"{stats_err!r}")
     return out
 
 
@@ -955,6 +1219,7 @@ def phase3_case9(dev, on_card: bool) -> dict:
         _check(launched['bus_scatter'] >= info.cumul,
                f"case9: {launched['bus_scatter']} bus launches")
         _hooks_held("case9", launched, info.cumul, info.outer)
+        _branch_io_launches("case9", launched)
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 seconds=secs)
 
@@ -978,8 +1243,10 @@ def _graph_ms(dev, fn, reps: int) -> float:
 
 
 def _max_abs(pairs) -> float:
-    return max(float((a - b).abs().max()) if a.numel() else 0.0
-               for a, b in pairs)
+    """The largest |a - b| over the pairs; equal entries (infinities among
+    them) differ by 0."""
+    return max(float((a - b).abs().masked_fill(a == b, 0).max())
+               if a.numel() else 0.0 for a, b in pairs)
 
 
 def _hook_state(model, iters: int):
@@ -1243,9 +1510,11 @@ def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
         _check(launches[lane] == info.cumul + WARMUP
                and sum(launches.values()) == launches[lane]
                + launches["bus_scatter"] + launches["graph_loop"]
-               + sum(launches[k] for k in HOOK_KERNELS),
+               + sum(launches[k] for k in HOOK_KERNELS)
+               + sum(launches[k] for k in BRANCH_IO_KERNELS),
                f"{label}: TRON launches {launches}")
         _hooks_held(label, launches, info.cumul, info.outer)
+        _branch_io_launches(label, launches)
         _check(launches["graph_loop"] == _loop_trips(info),
                f"{label}: loop launches {launches}")
         _check(launches["bus_scatter"] == 2 * (info.cumul + WARMUP),
@@ -1290,6 +1559,7 @@ def phase3g_case118(dev, on_card: bool, outer_iterlim: int = 25) -> dict:
                and launches["bus_scatter"] == 2 * (info.cumul + WARMUP),
                f"case118: launches {launches} for {info.cumul} inner "
                f"iterations")
+        _branch_io_launches("case118", launches)
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 seconds=secs)
 
@@ -1470,6 +1740,7 @@ def phase9a_mesh_one_rank(dev, data, on_card: bool, base: dict) -> dict:
                and launches["graph_loop"] == _loop_trips(info),
                f"mesh of one rank: launches {launches}")
         _hooks_held("mesh of one rank", launches, info.cumul, info.outer)
+        _branch_io_launches("mesh of one rank", launches)
     return dict(launches=launches, rate=rate, rate_host=rate_host,
                 outer=info.outer, cumul=info.cumul, obj=info.objval,
                 per_it=per_it, bytes_per_it=nbytes,
@@ -1551,6 +1822,7 @@ def phase9b_two_ranks(dev, data, on_card: bool, base: dict) -> dict:
         _check(got["launches"]["tron_alm_branch"] == big["cumul"]
                and got["launches"]["bus_scatter"] == 2 * big["cumul"],
                f"two ranks: launches {got['launches']}")
+        _branch_io_launches("two ranks", got["launches"])
     return dict(launches=got["launches"], rate=rate, cumul=big["cumul"],
                 obj=big["obj"], case9=small)
 
@@ -1585,6 +1857,7 @@ def phase3d_case9_polar(dev, on_card: bool) -> dict:
                f"case9 polar: launches {launches} for {info.cumul} inner "
                f"iterations")
         _hooks_held("case9 polar", launches, info.cumul, info.outer)
+        _branch_io_launches("case9 polar", launches)
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 seconds=secs)
 
@@ -1622,6 +1895,7 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
                f"inner iterations")
         _check(launched['bus_scatter'] == 2 * (info.cumul + WARMUP),
                f"case9 mp: {launched['bus_scatter']} bus launches")
+        _branch_io_launches("case9 mp", launched)
 
     # one period: no ramp batch, so no ramp launch
     _zero_launches()
@@ -1685,6 +1959,7 @@ def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
         _check(launches["bus_scatter"] == 2 * (info.cumul + WARMUP)
                and launches["graph_loop"] == _loop_trips(info),
                f"multi-period path: bus and loop launches {launches}")
+        _branch_io_launches("multi-period path", launches)
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, err_ramp=res.err_ramp, peak=peak)
 
@@ -1834,6 +2109,7 @@ def phase3e_case9_mpec(dev, on_card: bool) -> dict:
                    == per_it * (info.cumul + WARMUP),
                    f"case9 MPEC {label}: launches {launches} for "
                    f"{info.cumul} inner iterations")
+            _branch_io_launches(f"case9 MPEC {label}", launches)
         out[label] = dict(outer=info.outer, cumul=info.cumul,
                           obj=info.objval, seconds=secs)
     return out
@@ -1869,6 +2145,7 @@ def phase3f_case9_rolling_projection(dev, on_card: bool) -> dict:
                f"iterations and the warm-up")
         _hooks_held("case9 rolling", launches, total,
                     sum(i.outer for i in infos))
+        _branch_io_launches("case9 rolling", launches)
 
     res = E.solve_acopf(CASE9, rho_pq=4e2, rho_va=4e4, outer_eps=2e-5,
                         outer_iterlim=25, use_projection=True, verbose=0,
@@ -1930,9 +2207,10 @@ def phase7_mpec(dev, data, on_card: bool) -> dict:
         _check(launches["tron_alm_branch"] == info.cumul + WARMUP
                and launches["bus_scatter"] == 3 * (info.cumul + WARMUP)
                and launches["graph_loop"] == _loop_trips(info)
-               and sum(launches.values()) == 4 * (info.cumul + WARMUP)
+               and sum(launches.values()) == 7 * (info.cumul + WARMUP)
                + launches["graph_loop"],
                f"MPEC path: launches {launches}")
+        _branch_io_launches("MPEC path", launches)
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, peak=peak, nstorage=nsto)
 
@@ -2055,6 +2333,7 @@ def phase10a_mixed(dev, data, on_card: bool, base: dict,
                and launches["bus_scatter"] == 2 * (info.cumul + WARMUP),
                f"mixed path: launches {entries} {launches}")
         _hooks_held("mixed path", launches, info.cumul, info.outer)
+        _branch_io_launches("mixed path", launches)
     out["main"] = dict(launches=launches, rate=rate, outer=info.outer,
                        cumul=info.cumul, obj=info.objval)
 
@@ -2201,6 +2480,7 @@ def _sorted_solve(dev, model, label: str, base: dict,
                and launches["graph_loop"] == _loop_trips(info),
                f"{label}: launches {launches}")
         _hooks_held(label, launches, info.cumul, info.outer)
+        _branch_io_launches(label, launches)
     return dict(launches=launches, rate=rate, rate_host=rate_host,
                 outer=info.outer, cumul=info.cumul, obj=info.objval,
                 ids=ids, sol=sol, pre_ms=pre_ms, round_ms=round_ms,
@@ -2410,6 +2690,9 @@ def _fused_pair(dev, label: str, call, periods, on_card: bool,
                and lf == want,
                f"phase 11 {label}: launches fused {lf}, host {lh}, "
                f"expected fused {want}")
+        if lh["tron_alm_branch"] + lh["tron_alm_polar"]:
+            _branch_io_launches(f"phase 11 {label} fused", lf)
+            _branch_io_launches(f"phase 11 {label} host", lh)
     rate_f = cumul / sum(i.time_overall for i, _ in fused)
     rate_h = cumul / sum(i.time_overall for i, _ in host)
     first, last = fused[0][0], fused[-1][0]
@@ -2803,6 +3086,8 @@ def run(device, big_data, mp_data, mp_loads, T: int,
     results["ramp"] = phase2b_ramp(dev, *mp)
     results["qpsub"] = phase2c_qpsub(dev, big_data, on_card)
     results["polar"] = phase2d_polar(dev, big_data, on_card)
+    results["branch_io"] = phase2f_branch_io(dev, big_data, mp_data,
+                                             mp_loads, T, on_card)
     results["case9"] = phase3_case9(dev, on_card)
     results["case9_mp"] = phase3b_case9_mpacopf(dev, on_card)
     results["case9_qp"] = phase3c_case9_qpsub(dev, on_card)
@@ -2858,10 +3143,13 @@ def run(device, big_data, mp_data, mp_loads, T: int,
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
                      "device_ms": r["ms"], "enqueue_ms": r["enqueue_ms"]})
-    for name, replaces in HOOK_KERNELS.items():
-        r = results["hooks"][name]
+    for name, replaces, key, src in (
+            [(k, v, "hooks", "acopf_hooks") for k, v in HOOK_KERNELS.items()]
+            + [(k, v, "branch_io", "branch_io")
+               for k, v in BRANCH_IO_KERNELS.items()]):
+        r = results[key][name]
         kern.append({"name": name, "route": "cuda",
-                     "source": KERNEL_SOURCES["acopf_hooks"][0],
+                     "source": KERNEL_SOURCES[src][0],
                      "replaces": replaces,
                      "launches": sum(results[m]["launches"][name]
                                      for m in main_runs),
@@ -2921,11 +3209,13 @@ def main() -> int:
                               device=dev)
         profile_main(dev, "phase 8", two_level_hooks(model),
                      M.init_solution(model, 3e3, 3e5), ("primres",))
-        # phase 4's solve fused, then sorted (10b) and over a mesh of one
-        # rank (9a), then phases 5-8: a long profiled run can leave the
-        # profiler's later sessions short of device activities
+        # phase 4's solve fused and phase 8's, then phase 4's sorted (10b)
+        # and over a mesh of one rank (9a), then phases 5-7: a long
+        # profiled run can leave the profiler's later sessions short of
+        # device activities
         runs = main_runs(dev, big, mp_data, mp_loads, T)
         profile_fused(dev, "phase 4", runs["phase 4"])
+        profile_fused(dev, "phase 8", runs["phase 8"])
         import exaadmm_tpu_torch as E
         from exaadmm_tpu_torch.algorithms.admm_two_level import \
             two_level_driver
@@ -2939,7 +3229,7 @@ def main() -> int:
         with _one_rank_mesh(dev, True) as mesh:
             profile_fused(dev, "phase 9a mesh", lambda: E.solve_acopf(
                 big.case, data=big, mesh=mesh, device=dev, **MAIN_KW))
-        for label in ("phase 5", "phase 6", "phase 7", "phase 8"):
+        for label in ("phase 5", "phase 6", "phase 7"):
             profile_fused(dev, label, runs[label])
     if "--solve" in sys.argv[1:]:
         solve_to_tolerance(dev, big)

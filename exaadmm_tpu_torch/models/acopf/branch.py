@@ -18,14 +18,17 @@ rounds (JAX ``branch_obj_polar`` through ``tron_batched``).
 Every line is a lane of one TRON/ALM batch (``ops/tron_cuda.py``): the
 hand-written kernel on the GPU (the branch instance, or the polar instance
 without line limits), the plain lockstep version on the CPU. With
-``Parameters.mixed_precision`` an fp64 solve runs that batch in fp32.
+``Parameters.mixed_precision`` an fp64 solve runs that batch in fp32. The
+work around the batch, its inputs' pack and its result's unpack, is
+``branch_pack_plain`` and ``branch_unpack_plain`` here and one kernel each
+on the GPU (``ops/branch_cuda.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...ops import tron_cuda
+from ...ops import branch_cuda, tron_cuda
 from ...ops.tron import TronALMResult
 from ...parallel.sharding import all_reduce_max, all_reduce_sum
 from ...utils.environment import (BranchALMState, Parameters, Solution,
@@ -409,59 +412,105 @@ def cast_up(res: TronALMResult, dtype) -> TronALMResult:
                         mu=res.mu.to(dtype), cviol=res.cviol.to(dtype))
 
 
-def branch_update(sol: Solution, gd: GridData, par: Parameters,
-                  inner_iter, use_linelimit: bool = True):
-    """Solve all line subproblems; returns (new u line block, new ALM state,
-    stats). The stats are tensors (nothing is read back here). Without line
-    limits the ALM state is returned unchanged and ``max_cviol`` is 0.
-
-    With ``par.mixed_precision`` on fp64 state the batch's inputs are cast
-    down and it runs in fp32 with fp32 tolerances (the kernel's f32
-    instance); x, the multipliers, the penalties and the violations are
-    cast back up before the flows, so the returned state stays fp64
-    (``cast_down``/``cast_up``, JAX ``branch_update``'s ``_down``/``_up``)."""
-    out_dtype = sol.u.line.dtype
-    mixed = par.mixed_precision and out_dtype == torch.float64
-    solve_dtype = torch.float32 if mixed else out_dtype
+def branch_pack_plain(sol: Solution, gd: GridData, par: Parameters,
+                      inner_iter, use_linelimit: bool, solve_dtype):
+    """The batch's inputs as the TRON kernel takes them: x0, xl, xu (n, B),
+    the packed (33, B) parameter block, lam0 (ncon, B), mu0 (B,), all in
+    ``solve_dtype``, and the uint8 flag active0 (B,). With line limits
+    ``branch_inputs``' batch (n = 6, ncon = 2), else ``polar_inputs``'
+    (n = 4, ncon = 0); in fp32 under mixed precision (``cast_down`` of the
+    fp64 values). The plain version of ``ops/branch_cuda.branch_pack``."""
     if use_linelimit:
-        *batch, active0 = branch_inputs(sol, gd, par, inner_iter)
-        solve = tron_cuda.tron_alm_branch
-        opts = branch_tolerances(par, solve_dtype)
+        x0, xl, xu, params, lam0, mu0, active0 = branch_inputs(
+            sol, gd, par, inner_iter)
     else:
-        *batch, active0 = polar_inputs(sol, gd, par)
-        solve = tron_cuda.tron_alm_polar
-        opts = polar_tolerances(par, solve_dtype)
-    if mixed:
+        x0, xl, xu, params, lam0, mu0, active0 = polar_inputs(sol, gd, par)
+    batch = (x0, xl, xu, tron_cuda.pack_params(params), lam0, mu0)
+    if solve_dtype != sol.u.line.dtype:
         batch = cast_down(*batch)
-    res = solve(*batch, active0=active0, **opts)
-    if mixed:
+    return (*batch, active0.to(torch.uint8))
+
+
+def branch_stats_plain(res: TronALMResult, gd: GridData, active0):
+    """The batch's stats before any all-reduce, one (5,) tensor in the
+    state's dtype: the sums of ``alm_iters`` and ``minor_iters`` over the
+    real lines, the largest violation of an active lane, and the two sums
+    over ``gd.nline``; ``res`` is in the state's dtype."""
+    m = gd.line_mask
+    sums = torch.stack([torch.sum(res.alm_iters * m),
+                        torch.sum(res.minor_iters * m)])
+    max_cv = torch.amax(torch.where(active0, res.cviol,
+                                    torch.zeros_like(res.cviol)))
+    return torch.cat([sums, max_cv[None], sums / gd.nline])
+
+
+def branch_unpack_plain(res: TronALMResult, sol: Solution, gd: GridData,
+                        active0, use_linelimit: bool, out_dtype):
+    """(u_new (B, 8), the new ALM state, lane_steps (B,) int32, the stats
+    of ``branch_stats_plain``) from the batch's result: x, the multipliers,
+    the penalties and the violations cast up to ``out_dtype`` first
+    (mixed precision), the four flows at x where the lane is active, else
+    its old row; without line limits the ALM state as it was. The plain
+    version of ``ops/branch_cuda.branch_unpack``."""
+    if res.x.dtype != out_dtype:
         res = cast_up(res, out_dtype)
     new_alm = (BranchALMState(lam1=res.lam[0], lam2=res.lam[1], mu=res.mu)
                if use_linelimit else sol.branch_alm)
-
     p = {k: getattr(gd, k) for k in Y_KEYS}
     pij, qij, pji, qji = _flows(res.x, p)
     vi, vj = res.x[0], res.x[1]
     u_new = torch.stack([pij, qij, pji, qji, vi * vi, vj * vj,
                          res.x[2], res.x[3]], dim=-1)
     # padded lanes keep their previous (zero) state
-    u_new = torch.where(active0[:, None], u_new, sol.u.line)
+    active = active0 != 0
+    u_new = torch.where(active[:, None], u_new, sol.u.line)
+    stats = branch_stats_plain(res, gd, active)
+    # each lane's trust-region steps and ALM rounds (0 on padded lanes):
+    # the difficulty that Parameters.sort_lines orders the lanes by
+    lane_steps = ((res.minor_iters + res.alm_iters)
+                  * gd.line_mask.to(res.minor_iters.dtype))
+    return u_new, new_alm, lane_steps, stats
 
-    m = gd.line_mask
-    sums = [torch.sum(res.alm_iters * m), torch.sum(res.minor_iters * m)]
-    max_cv = torch.amax(torch.where(active0, res.cviol,
-                                    torch.zeros_like(res.cviol)))
-    if gd.mesh is not None:
+
+def branch_update(sol: Solution, gd: GridData, par: Parameters,
+                  inner_iter, use_linelimit: bool = True):
+    """Solve all line subproblems; returns (new u line block, new ALM state,
+    stats). The stats are tensors (nothing is read back here). Without line
+    limits the ALM state is returned unchanged and ``max_cviol`` is 0.
+
+    Three steps, each a hand-written kernel on the card
+    (``ops/branch_cuda.py``, ``ops/tron_cuda.py``) and its plain version on
+    the CPU: the pack (``branch_pack_plain``), the TRON/ALM batch on the
+    packed block, and the unpack (``branch_unpack_plain``); then, with the
+    lines split over a mesh, one (2,) sum and one maximum across the ranks.
+
+    With ``par.mixed_precision`` on fp64 state the batch runs in fp32 with
+    fp32 tolerances (the kernel's f32 instance); its inputs are cast down
+    and x, the multipliers, the penalties and the violations cast back up
+    before the flows, so the returned state stays fp64
+    (``cast_down``/``cast_up``, JAX ``branch_update``'s ``_down``/``_up``)."""
+    out_dtype = sol.u.line.dtype
+    mixed = par.mixed_precision and out_dtype == torch.float64
+    solve_dtype = torch.float32 if mixed else out_dtype
+    if use_linelimit:
+        inst, opts = tron_cuda.BRANCH, branch_tolerances(par, solve_dtype)
+    else:
+        inst, opts = tron_cuda.POLAR, polar_tolerances(par, solve_dtype)
+    *batch, active0 = branch_cuda.branch_pack(
+        sol, gd, par, inner_iter, use_linelimit, solve_dtype)
+    res = tron_cuda.tron_alm_packed(inst, *batch, active0=active0, **opts)
+    u_new, new_alm, lane_steps, tot = branch_cuda.branch_unpack(
+        res, sol, gd, active0, use_linelimit, out_dtype)
+    if gd.mesh is None:
+        avg, max_cv = tot[3:], tot[2]
+    else:
         # lines split across ranks: one (2,) sum and one scalar maximum
-        sums = all_reduce_sum(torch.stack(sums), gd.mesh).unbind()
-        max_cv = all_reduce_max(max_cv, gd.mesh)
+        avg = all_reduce_sum(tot[:2], gd.mesh) / gd.nline
+        max_cv = all_reduce_max(tot[2], gd.mesh)
     stats = {
-        "avg_auglag_it": sums[0] / gd.nline,
-        "avg_minor_it": sums[1] / gd.nline,
+        "avg_auglag_it": avg[0],
+        "avg_minor_it": avg[1],
         "max_cviol": max_cv,
-        # each lane's trust-region steps and ALM rounds (0 on padded lanes):
-        # the difficulty that Parameters.sort_lines orders the lanes by
-        "lane_steps": ((res.minor_iters + res.alm_iters)
-                       * m.to(res.minor_iters.dtype)),
+        "lane_steps": lane_steps,
     }
     return u_new, new_alm, stats

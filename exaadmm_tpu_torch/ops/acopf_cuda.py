@@ -264,12 +264,12 @@ def generator_update(u_gen, v_gen, z_gen, l_gen, rho_gen, pgmin, pgmax,
 
 # ---- the bus update
 
-def _inv_base(baseMVA: float, dtype) -> float:
-    """1 / baseMVA as PyTorch's CUDA division of a tensor by a Python float
+def host_reciprocal(x: float, dtype) -> float:
+    """1 / x as PyTorch's CUDA division of a tensor by a Python number
     forms it: the reciprocal in the tensor's type, computed on the host."""
     if dtype == torch.float32:
-        return float(np.float32(1.0) / np.float32(baseMVA))
-    return 1.0 / float(baseMVA)
+        return float(np.float32(1.0) / np.float32(x))
+    return 1.0 / float(x)
 
 
 def bus_values(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd):
@@ -301,7 +301,7 @@ def bus_solve(agg, gsum, gd, Pd, Qd):
                          f"{tuple(gsum.shape)} for {nbus} buses")
     wtm = torch.empty((nbus, 4), dtype=agg.dtype, device=agg.device)
     _launch("acopf_bus_solve", agg.device, agg.dtype, *_ptrs(floats + [wtm]),
-            nbus, _inv_base(gd.baseMVA, agg.dtype))
+            nbus, host_reciprocal(gd.baseMVA, agg.dtype))
     return wtm
 
 

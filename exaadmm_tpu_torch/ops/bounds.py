@@ -183,3 +183,62 @@ def hook_ops(name: str, ngen: int, nline: int, nbus: int,
     n = 2 * ngen + 8 * nline
     return sum(a * b for a, b in zip(_HOOK_OPS[name],
                                      (n, ngen, nline, nbus, nblocks, 1)))
+
+
+# the branch update's pack and unpack (``csrc/branch_io.cu``): values a lane
+# reads and writes, by hand from the source, for n = 6 (line limits) and
+# n = 4 (polar): (state-type values read, solve-type values read, state
+# written, solve written, bytes of int32 and uint8 read, written)
+_BRANCH_IO = {
+    # u (8, or columns 4-7), v, z, l, rho (32), lam1, lam2, mu, the 8
+    # admittances, 4 bound pairs, rate_a, the mask; x0, xl, xu, the 33
+    # parameter rows, lam0, mu0 and the flag
+    ("branch_pack", 6): (61, 0, 0, 54, 0, 1),
+    ("branch_pack", 4): (53, 0, 0, 46, 0, 1),
+    # the 8 admittances and the mask; x's rows 0-3 and cviol; the new row;
+    # the two int32 counts and the flag read, the lane steps written (the
+    # old row of an inactive lane and the widened ALM state of mixed
+    # precision are added apart)
+    ("branch_unpack", 6): (9, 5, 8, 0, 9, 4),
+    ("branch_unpack", 4): (9, 5, 8, 0, 9, 4),
+}
+# operations a lane, by hand from the source (each add, subtract,
+# multiply, negation, square root, sine and cosine one; comparisons none):
+# the pack's square roots, slacks and prox targets; the unpack's angle,
+# trig, products, flows, lane steps and masked counts
+_BRANCH_IO_OPS = {("branch_pack", 6): 19, ("branch_pack", 4): 10,
+                  ("branch_unpack", 6): 37, ("branch_unpack", 4): 37}
+
+
+def branch_io_bytes(name: str, B: int, n: int, itemsize: int,
+                    mixed: bool = False, inactive: int = 0) -> dict:
+    """Bytes of one launch of the branch pack, unpack or stats kernel
+    (``name``) over B lanes of the n-variable batch: ``itemsize`` the
+    state's, the solve's fp32 under ``mixed``; ``inactive`` lanes whose old
+    row the unpack copies. The unpack's (3, nblocks) stats partials are
+    counted as written there and read by ``branch_stats``."""
+    solve = 4 if mixed else itemsize
+    nb = -(-B // 256)
+    if name == "branch_stats":
+        parts = {"read": 3 * nb * itemsize, "write": 5 * itemsize}
+    else:
+        rs, rv, ws, wv, ri, wi = _BRANCH_IO[(name, n)]
+        read = B * (rs * itemsize + rv * solve + ri)
+        write = B * (ws * itemsize + wv * solve + wi)
+        if name == "branch_unpack":
+            read += inactive * 8 * itemsize
+            write += 3 * nb * itemsize
+            if mixed and n == 6:   # lam and mu read, widened and written
+                read += B * 3 * solve
+                write += B * 3 * itemsize
+        parts = {"read": read, "write": write}
+    parts["total"] = parts["read"] + parts["write"]
+    return parts
+
+
+def branch_io_ops(name: str, B: int, n: int) -> int:
+    """Operations of one launch of the branch pack, unpack or stats
+    kernel over B lanes."""
+    if name == "branch_stats":
+        return 3 * -(-B // 256) + 2
+    return B * _BRANCH_IO_OPS[(name, n)]

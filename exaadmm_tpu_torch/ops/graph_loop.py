@@ -167,6 +167,17 @@ def count_launch(add, name: str) -> None:
         _capturing.slot(name, add).add_(1)
 
 
+def node_types(graph) -> dict:
+    """The nodes of a captured ``torch.cuda.CUDAGraph(keep_graph=True)``
+    by type (``NODE_TYPES``; child graphs counted through)."""
+    lib = library()
+    counts = (ctypes.c_int * len(NODE_TYPES))()
+    _build.check(lib, lib.graph_node_types(
+        ctypes.c_void_p(graph.raw_cuda_graph()), counts, len(NODE_TYPES)),
+        "graph_node_types")
+    return {NODE_TYPES[i]: n for i, n in enumerate(counts) if n}
+
+
 def _count_set_condition(n: int) -> None:
     global launches
     launches += n
@@ -297,15 +308,7 @@ class GraphLoop:
 
     def node_types(self) -> list:
         """Each body's nodes by type (child graphs counted through)."""
-        lib = library()
-        out = []
-        for g in self.graphs:
-            counts = (ctypes.c_int * len(NODE_TYPES))()
-            _build.check(lib, lib.graph_node_types(
-                ctypes.c_void_p(g.raw_cuda_graph()), counts,
-                len(NODE_TYPES)), "graph_node_types")
-            out.append({NODE_TYPES[i]: n for i, n in enumerate(counts) if n})
-        return out
+        return [node_types(g) for g in self.graphs]
 
     def launch(self) -> None:
         """Run the loop on the current stream, its launch counters zeroed

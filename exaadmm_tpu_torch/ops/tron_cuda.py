@@ -22,6 +22,10 @@ machine; on a CPU tensor it runs the plain version
 ``ops/tron.py::tron_alm_batched`` with the instance's functions; any other
 device raises.
 
+``tron_alm_packed`` launches the branch or polar instance on a parameter
+block that is already packed (``ops/branch_cuda.branch_pack`` writes it),
+as ``branch_update`` does; the dict entry points pack it themselves.
+
 ``launches`` counts the kernels' launches by entry point
 (``tron_alm_branch_f64``, ``tron_alm_branch_f32`` and so on, so the f32
 instances of a mixed-precision solve show apart from the f64 ones), a
@@ -87,6 +91,15 @@ def pack_params(params: dict) -> torch.Tensor:
     return torch.cat([torch.stack([params[k] for k in Y_KEYS]),
                       params["l"], params["rho"], params["t"],
                       params["scale"][None]]).contiguous()
+
+
+def params_view(P: torch.Tensor) -> dict:
+    """The params dict of a packed (33, B) branch block (``pack_params``'
+    rows), as views of it."""
+    from ..models.acopf.branch import Y_KEYS
+    p = {k: P[i] for i, k in enumerate(Y_KEYS)}
+    p.update(l=P[8:16], rho=P[16:24], t=P[24:32], scale=P[32])
+    return p
 
 
 def pack_ramp_params(params: dict) -> torch.Tensor:
@@ -221,6 +234,33 @@ def tron_alm_branch(x0, xl, xu, params, lam0, mu0, *, gtol: float,
         raise ValueError(f"tron_alm_branch: unsupported device {x0.device}")
     return _launch(BRANCH, x0, xl, xu, pack_params(params), lam0, mu0,
                    active0, **opts)
+
+
+def tron_alm_packed(inst: _Instance, x0, xl, xu, P, lam0, mu0, *,
+                    active0: torch.Tensor, gtol: float, frtol: float,
+                    ctol: float, mu_max: float, max_minor: int,
+                    max_auglag: int,
+                    step_cap: int | None = None) -> TronALMResult:
+    """Solve a branch (``BRANCH``) or polar (``POLAR``) batch whose
+    parameters are already packed: P (33, B) in ``pack_params``' rows, the
+    uint8 flags ``active0`` (B,), the rest as ``tron_alm_branch`` /
+    ``tron_alm_polar`` take them (``ops/branch_cuda.branch_pack`` writes
+    them all). On a CPU tensor the instance's plain version runs on views
+    of P."""
+    opts = dict(gtol=gtol, frtol=frtol, ctol=ctol, mu_max=mu_max,
+                max_minor=max_minor, max_auglag=max_auglag, step_cap=step_cap)
+    plain = {BRANCH: tron_alm_branch_plain, POLAR: tron_alm_polar_plain}
+    if inst not in plain:
+        raise ValueError(f"tron_alm_packed: {inst.name} has no (33, B) "
+                         "branch parameter block")
+    if x0.device.type == "cpu":
+        return plain[inst](x0, xl, xu, params_view(P), lam0, mu0,
+                           active0=active0 != 0, **opts)
+    if x0.device.type != "cuda":
+        raise ValueError(f"tron_alm_packed: unsupported device {x0.device}")
+    if active0.dtype != torch.uint8:
+        raise ValueError("tron_alm_packed: active0 must be uint8")
+    return _launch(inst, x0, xl, xu, P, lam0, mu0, active0, **opts)
 
 
 def tron_alm_ramp(x0, xl, xu, params, lam0, mu0, *, gtol: float,

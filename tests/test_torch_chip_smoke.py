@@ -27,9 +27,9 @@ def test_rehearsal_on_cpu(case9_path, capsys):
                          case9_mixed_outer=2, case9_fused_outer=2,
                          qp_fused_iters=40)
     out = capsys.readouterr().out
-    for phase in ("1", "1b", "1c", "2", "2b", "2c", "2d", "3", "3b", "3c",
-                  "3d", "3e", "3f", "3g", "3h", "4h", "4", "5", "6", "7",
-                  "8", "9a", "9b", "10a", "10b", "11"):
+    for phase in ("1", "1b", "1c", "2", "2b", "2c", "2d", "2f", "3", "3b",
+                  "3c", "3d", "3e", "3f", "3g", "3h", "4h", "4", "5", "6",
+                  "7", "8", "9a", "9b", "10a", "10b", "11"):
         assert f"phase {phase}:" in out
     # the hook kernels against their plain versions (trivially exact on the
     # CPU, where the wrappers run the plain versions), the residual's tree
@@ -40,6 +40,15 @@ def test_rehearsal_on_cpu(case9_path, capsys):
                                           "l", "lz", "residual"}
     assert "acopf_z f32: bit-identical" in out
     assert res["hooks"]["acopf_residual_final"]["max_abs_err"] == 0.0
+    # the branch update's pack, unpack and stats against their plain
+    # versions: 19 batches (types, instances, iterations, the periods'
+    # batch, a random line order, the rank windows)
+    assert res["branch_io"]["cases"] == 19
+    assert set(res["branch_io"]) == set(chip_smoke.BRANCH_IO_KERNELS) | {
+        "io", "cases", "census"}
+    assert "in a random line order: B=32 (23 inactive)" in out
+    assert "x 3 periods mixed line limits: B=27" in out
+    assert "rank 1 of 2: B=5 (1 inactive)" in out
     # mixed precision and line sorting at phase 4's configuration
     assert res["main_mixed"]["outer"] == res["main"]["outer"]
     assert ((res["main_sorted"]["outer"], res["main_sorted"]["cumul"])
@@ -108,7 +117,7 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     names = [k["name"] for k in res["kernels"]]
     assert names == ["tron_alm_branch", "tron_alm_ramp", "tron_alm_qpsub",
                      "bus_scatter", "tron_alm_polar", "graph_loop",
-                     *chip_smoke.HOOK_KERNELS]
+                     *chip_smoke.HOOK_KERNELS, *chip_smoke.BRANCH_IO_KERNELS]
     for k in res["kernels"]:
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -123,7 +132,8 @@ def test_rehearsal_on_cpu(case9_path, capsys):
             text = f.read().splitlines()[int(line) - 1]
         # a TPU kernel's function, the JAX call that runs the polar batch
         # as plain XLA, the JAX loop that the graph's loop replaces, or the
-        # JAX hook whose XLA fusions a hook kernel stands for
+        # JAX hook or branch update code whose XLA fusions a hook or branch
+        # I/O kernel stands for
         assert {"tron_alm_polar": "tron_batched(",
                 "graph_loop": "lax.while_loop("}.get(k["name"],
                                                     "def ") in text

@@ -197,7 +197,7 @@ class _Guard:
                 return _orig(t, *a, **k)
             monkeypatch.setattr(torch.Tensor, name, guarded)
         for name in ("tron_alm_branch", "tron_alm_polar", "tron_alm_ramp",
-                     "tron_alm_qpsub"):
+                     "tron_alm_qpsub", "tron_alm_packed"):
             monkeypatch.setattr(tron_cuda, name,
                                 self.unguarded(getattr(tron_cuda, name)))
 

@@ -126,23 +126,25 @@ def test_mixed_branch_update_matches_jax(case, use_linelimit, min_agree,
 
 
 def test_mixed_branch_update_launches_the_f32_batch(monkeypatch):
-    """The mixed path hands the TRON wrapper fp32, contiguous inputs and
-    fp32 tolerances, and an fp64 state back to the caller."""
+    """The mixed path hands the TRON wrapper (the branch instance on the
+    packed parameter block) fp32, contiguous inputs and fp32 tolerances,
+    and an fp64 state back to the caller."""
     from exaadmm_tpu_torch.ops import tron_cuda
     seen = {}
-    real = tron_cuda.tron_alm_branch
+    real = tron_cuda.tron_alm_packed
 
-    def spy(x0, xl, xu, params, lam0, mu0, **kw):
-        seen["dtypes"] = {t.dtype for t in (x0, xl, xu, lam0, mu0,
-                                            *params.values())}
+    def spy(inst, x0, xl, xu, P, lam0, mu0, **kw):
+        seen["inst"] = inst
+        seen["dtypes"] = {t.dtype for t in (x0, xl, xu, P, lam0, mu0)}
         seen["contiguous"] = all(t.is_contiguous()
-                                 for t in (x0, xl, xu, lam0, mu0))
+                                 for t in (x0, xl, xu, P, lam0, mu0))
         seen["gtol"] = kw["gtol"]
-        return real(x0, xl, xu, params, lam0, mu0, **kw)
+        return real(inst, x0, xl, xu, P, lam0, mu0, **kw)
 
-    monkeypatch.setattr(tron_cuda, "tron_alm_branch", spy)
+    monkeypatch.setattr(tron_cuda, "tron_alm_packed", spy)
     (ts, tg, tp), _ = _states("case9", True, True)
     tu, _, _ = TB.branch_update(ts, tg, tp, 1)
+    assert seen["inst"] == tron_cuda.BRANCH
     assert seen["dtypes"] == {torch.float32}
     assert seen["contiguous"]
     assert seen["gtol"] == TB.branch_tolerances(tp, torch.float32)["gtol"]
