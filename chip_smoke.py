@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile] [--solve]
 
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or /usr/local/cuda) and
-``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the eight
+``nvidia-smi``; imports neither jax nor ``exaadmm_tpu``. It builds the nine
 CUDA sources of the main paths from ``exaadmm_tpu_torch/csrc`` (one nvcc
 process per source, all at once) and runs, in order:
 
@@ -129,7 +129,26 @@ process per source, all at once) and runs, in order:
    lines, 430 generators), 8 periods of the load profile
    ``synthetic_load_profile``, fp64, flat start at rho (4e2, 4e4), 3 outer
    iterations of at most 50 inner with outer_eps 0: the same rates as phase 4, the
-   final mismatch, the ramp violation and the peak device memory;
+   final mismatch, the ramp violation and the peak device memory; each
+   multi-period hook kernel (``csrc/mpacopf_hooks.cu``) launched once an
+   inner iteration and ``mp_lz`` once an outer round, plus the warm-up's
+   pass, and none of the plain hooks called (so in 3b too, whose
+   one-period run launches no ramp pack);
+5h. (run after phase 5) the multi-period hook kernels (ramp pack;
+   generator and ramp unpack; bus values, per-bus solve, writeback; z, l,
+   lz; the residual's two passes) against their plain versions, each
+   twice, on 7 batches: phase 5's model after 3 inner iterations with the
+   generator rows and the ramp's u and s perturbed from a numpy seed so
+   the clamps bind (fp64 with inner_iter a 0-d tensor and an int, and
+   fp32), case9 x 3 periods, case9 x 1 period, and each of two rank
+   windows of phase 5's model padded to an even line count: every
+   elementwise output bit-identical to the plain version and to a rerun;
+   the residual's block sums and scalars bit-identical to the torch
+   reproduction of the kernels' per-period tree and to a rerun, and (fp64)
+   within 1e-13 of the terms' magnitudes (1e-13 relative on the square
+   roots) of ``torch.sum``'s; each kernel's device ms per launch beside
+   its plain version's and its bound, each hook's plain and kernel forms
+   eager and captured as a graph, and an empty kernel's device ms;
 6. the one-level QP-subproblem path at full width: the synthetic 9241-bus
    QP of phase 2c through ``solve_qpsub``, fp64, rho (4e3, 4e3),
    tron_step_cap 24, outer_eps 0, 200 iterations: iterations per second of
@@ -234,7 +253,8 @@ Each phase prints one line of numbers; any failure raises, so the script
 exits non-zero and prints no result. The line before the last is one JSON
 object with each kernel's numbers (phase 1's fp64 scatter and phase 2's,
 2b's, 2c's and 2d's fp64 batches, phase 11's set-condition loop, phase
-4h's hook kernels and phase 2f's branch I/O kernels):
+4h's hook kernels, phase 2f's branch I/O kernels and phase 5h's
+multi-period hook kernels):
 ``ms`` and ``device_ms`` the device time per launch, ``enqueue_ms`` the host's time per call, ``plain_ms`` the plain
 version's, ``bound_ms`` and ``bound_by`` the least time for the bytes and
 operations of that launch, and ``library_ms`` ``index_add_``'s device time
@@ -319,6 +339,11 @@ KERNEL_SOURCES = {
     "branch_io": ("exaadmm_tpu_torch/csrc/branch_io.cu",
                   "exaadmm_tpu/models/acopf/branch.py:297 "
                   "(branch_update around the solver call; no Pallas)"),
+    # no TPU kernel: the multi-period hooks, which XLA fuses
+    # (``MP_HOOK_KERNELS``)
+    "mpacopf_hooks": ("exaadmm_tpu_torch/csrc/mpacopf_hooks.cu",
+                      "exaadmm_tpu/models/mpacopf/model.py:162 "
+                      "(_ramp_alm_update ... update_residual; no Pallas)"),
 }
 # the kernels of csrc/acopf_hooks.cu, each with the JAX hook whose XLA
 # fusions it stands for (no TPU kernel)
@@ -359,6 +384,38 @@ BRANCH_IO_KERNELS = {
 }
 
 
+# the kernels of csrc/mpacopf_hooks.cu, each with the JAX multi-period hook
+# whose XLA fusions it stands for (no TPU kernel)
+_JM = "exaadmm_tpu/models/mpacopf/model.py"
+MP_HOOK_KERNELS = {
+    "mp_ramp_pack": f"{_JM}:162 (_ramp_alm_update: the ramp batch's x0, "
+                    "bounds, parameters and ALM start :162-244; XLA "
+                    "fusions, no Pallas)",
+    "mp_generator_unpack": f"{_JM}:246 (update_x: qg, pg of period 1 and "
+                           "the ramp unpack :246-323; XLA fusions, no "
+                           "Pallas)",
+    "mp_bus_values": f"{_JM}:326 (update_xbar, vmapped with the ramp "
+                     "blend: the arc and generator values; XLA fusions, no "
+                     "Pallas)",
+    "mp_bus_solve": f"{_JM}:326 (update_xbar: the per-bus 2x2 solve; XLA "
+                    "fusions, no Pallas)",
+    "mp_bus_writeback": f"{_JM}:326 (update_xbar: the writeback; XLA "
+                        "fusions, no Pallas)",
+    "mp_z": f"{_JM}:370 (update_z with the ramp block; XLA fusions, no "
+            "Pallas)",
+    "mp_l": f"{_JM}:379 (update_l with the ramp block; XLA fusions, no "
+            "Pallas)",
+    "mp_lz": f"{_JM}:385 (update_lz with the ramp block; XLA fusions, no "
+             "Pallas)",
+    "mp_residual_partials": f"{_JM}:393 (update_residual: rp, rd and the "
+                            "per-period block sums; XLA fusions, no "
+                            "Pallas)",
+    "mp_residual_final": f"{_JM}:393 (update_residual: the maximum over "
+                         "periods of the 2-norms, the objective; XLA "
+                         "fusions, no Pallas)",
+}
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -372,10 +429,11 @@ def _check(cond: bool, what: str):
 def _zero_launches():
     """Set every kernel's launch count to 0."""
     from exaadmm_tpu_torch.ops import acopf_cuda, branch_cuda, bus_cuda, \
-        graph_loop, tron_cuda
+        graph_loop, mpacopf_cuda, tron_cuda
     tron_cuda.launches.clear()
     acopf_cuda.launches.clear()
     branch_cuda.launches.clear()
+    mpacopf_cuda.launches.clear()
     bus_cuda.launches = 0
     graph_loop.launches = 0
 
@@ -385,12 +443,13 @@ def _launches() -> dict:
     the fused loops' set-condition kernel (1 + 2 outer + cumul in a
     two-level solve, 1 + iterations in a one-level one)."""
     from exaadmm_tpu_torch.ops import acopf_cuda, branch_cuda, bus_cuda, \
-        graph_loop, tron_cuda
+        graph_loop, mpacopf_cuda, tron_cuda
     n = {inst.name: tron_cuda.instance_launches(inst)
          for inst in (tron_cuda.BRANCH, tron_cuda.RAMP, tron_cuda.QPSUB,
                       tron_cuda.POLAR)}
     n.update({k: acopf_cuda.launches.get(k, 0) for k in HOOK_KERNELS})
     n.update({k: branch_cuda.launches.get(k, 0) for k in BRANCH_IO_KERNELS})
+    n.update({k: mpacopf_cuda.launches.get(k, 0) for k in MP_HOOK_KERNELS})
     return dict(n, bus_scatter=bus_cuda.launches,
                 graph_loop=graph_loop.launches)
 
@@ -421,6 +480,57 @@ def _hooks_held(label: str, launches: dict, cumul: int, outer: int,
                         f"{want}")
 
 
+def _mp_hooks_held(label: str, launches: dict, cumul: int, outer: int,
+                   T: int, warm: int = WARMUP) -> None:
+    """The multi-period hook kernels of a ``solve_mpacopf`` on a fused
+    solver built once: each once an inner iteration (the ramp pack none
+    with one period), ``mp_lz`` once an outer round, and the warm-up's
+    pass once more; and no single-period hook kernel."""
+    want = {k: cumul + warm for k in MP_HOOK_KERNELS}
+    want["mp_lz"] = outer + warm
+    if T == 1:
+        want["mp_ramp_pack"] = 0
+    got = {k: launches[k] for k in MP_HOOK_KERNELS}
+    acopf = {k: launches[k] for k in HOOK_KERNELS if launches[k]}
+    _check(got == want and not acopf,
+           f"{label}: multi-period hook kernel launches {got}, expected "
+           f"{want}; single-period hook kernels {acopf}")
+
+
+@contextlib.contextmanager
+def _no_plain_mp_hooks(on_card: bool):
+    """On the card, the multi-period hooks' plain versions made to raise:
+    a solve in this block must run every hook on its kernels. On the CPU
+    (a rehearsal) the plain versions are the route, and nothing changes."""
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.models.mpacopf import ramp as R
+    from exaadmm_tpu_torch.ops import mpacopf_cuda as MC
+    if not on_card:
+        yield
+        return
+
+    def never(*a, **k):
+        raise AssertionError("a multi-period hook ran its plain version on "
+                             "the card")
+
+    saved = []
+    for mod, names in ((MP, ("generator_unpack_plain", "bus_update_plain",
+                             "z_update_plain", "l_update_plain",
+                             "lz_update_plain", "residual_update_plain")),
+                       (R, ("ramp_pack_plain",)),
+                       (MC, ("bus_values_plain", "bus_solve_plain",
+                             "residual_partials_plain",
+                             "residual_final_plain"))):
+        for name in names:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, never)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def _branch_io_launches(label: str, launches: dict) -> None:
     """The branch update's kernels: one pack, one unpack and one stats pass
     for each launch of the branch or polar TRON kernel, and at least one
@@ -434,7 +544,7 @@ def _branch_io_launches(label: str, launches: dict) -> None:
 
 def phase0_device(dev, on_card: bool) -> dict:
     from exaadmm_tpu_torch.ops import _build, acopf_cuda, branch_cuda, \
-        bus_cuda, graph_loop, tron_cuda
+        bus_cuda, graph_loop, mpacopf_cuda, tron_cuda
     info = {"name": str(dev)}
     if on_card:
         smi = subprocess.run(
@@ -456,6 +566,7 @@ def phase0_device(dev, on_card: bool) -> dict:
         bus_cuda.library()
         acopf_cuda.library()
         branch_cuda.library()
+        mpacopf_cuda.library()
         # keep_graph, raw_cuda_graph and a driver with conditional nodes
         graph_loop.check_support()
         version = ctypes.c_int(0)
@@ -1867,10 +1978,11 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
 
     _zero_launches()
     t0 = time.perf_counter()
-    res = E.solve_mpacopf(CASE9, DEMAND9, start_period=1, end_period=3,
-                          rho_pq=4e2, rho_va=4e4, outer_iterlim=30,
-                          outer_eps=2e-4, warm_start=False, verbose=0,
-                          device=dev)
+    with _no_plain_mp_hooks(on_card):
+        res = E.solve_mpacopf(CASE9, DEMAND9, start_period=1, end_period=3,
+                              rho_pq=4e2, rho_va=4e4, outer_iterlim=30,
+                              outer_eps=2e-4, warm_start=False, verbose=0,
+                              device=dev)
     _sync(dev)
     launched = _launches()
     secs = time.perf_counter() - t0
@@ -1896,12 +2008,14 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
         _check(launched['bus_scatter'] == 2 * (info.cumul + WARMUP),
                f"case9 mp: {launched['bus_scatter']} bus launches")
         _branch_io_launches("case9 mp", launched)
+        _mp_hooks_held("case9 mp", launched, info.cumul, info.outer, 3)
 
     # one period: no ramp batch, so no ramp launch
     _zero_launches()
-    one = E.solve_mpacopf(CASE9, DEMAND9, end_period=1, outer_iterlim=1,
-                          inner_iterlim=5, warm_start=False, verbose=0,
-                          device=dev)
+    with _no_plain_mp_hooks(on_card):
+        one = E.solve_mpacopf(CASE9, DEMAND9, end_period=1, outer_iterlim=1,
+                              inner_iterlim=5, warm_start=False, verbose=0,
+                              device=dev)
     _sync(dev)
     launched = _launches()
     print(f"phase 3b: case9 x 1 period, {one.info.cumul} inner: launches "
@@ -1916,6 +2030,8 @@ def phase3b_case9_mpacopf(dev, on_card: bool) -> dict:
                f"and "
                f"{launched['tron_alm_ramp']} ramp launches for "
                f"{one.info.cumul} inner iterations")
+        _mp_hooks_held("case9 x 1 period", launched, one.info.cumul,
+                       one.info.outer, 1)
     return dict(outer=info.outer, cumul=info.cumul, obj=info.objval,
                 err_ramp=res.err_ramp, seconds=secs)
 
@@ -1928,10 +2044,12 @@ def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
     _sync(dev)
     _zero_launches()
     t0 = time.perf_counter()
-    res = E.solve_mpacopf(data.case, data=data, loads=loads, end_period=T,
-                          rho_pq=4e2, rho_va=4e4, outer_iterlim=3,
-                          inner_iterlim=50, outer_eps=0.0, warm_start=False,
-                          verbose=0, device=dev)
+    with _no_plain_mp_hooks(on_card):
+        res = E.solve_mpacopf(data.case, data=data, loads=loads,
+                              end_period=T, rho_pq=4e2, rho_va=4e4,
+                              outer_iterlim=3, inner_iterlim=50,
+                              outer_eps=0.0, warm_start=False, verbose=0,
+                              device=dev)
     _sync(dev)
     secs = time.perf_counter() - t0
     launches = _launches()
@@ -1960,8 +2078,305 @@ def phase5_mpacopf(dev, data, loads, T: int, on_card: bool) -> dict:
                and launches["graph_loop"] == _loop_trips(info),
                f"multi-period path: bus and loop launches {launches}")
         _branch_io_launches("multi-period path", launches)
+        _mp_hooks_held("multi-period path", launches, info.cumul, info.outer,
+                       T)
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, err_ramp=res.err_ramp, peak=peak)
+
+
+def _mp_hook_state(model, iters: int, seed: int = 3):
+    """``model``'s flat start after ``iters`` inner iterations and the next
+    prestep and x update, through its own hooks at beta 1e3 (every block of
+    the state and the ramp state set), then the generator rows of u and v
+    and the ramp's u perturbed by N(0, 0.5) and its s by N(0, 0.05) from
+    numpy seed ``seed``, so the pack's and the unpack's clamps bind on both
+    sides."""
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    sol = MP.init_solution(model, 4e2, 4e4)
+    for it in range(1, iters + 1):
+        sol, _ = model.update_x(model.inner_prestep(sol), it)
+        sol = model.update_xbar(sol)
+        sol = model.update_z(sol, 1e3)
+        sol = model.update_l(sol, 1e3)
+        sol, _ = model.update_residual(sol, 1e3)
+        if it == 2:
+            sol = model.update_lz(sol, 1e3)
+    sol, _ = model.update_x(model.inner_prestep(sol), iters + 1)
+    rng = np.random.default_rng(seed)
+
+    def noisy(x, sd):
+        return x + torch.as_tensor(rng.normal(0, sd, tuple(x.shape)),
+                                   dtype=x.dtype, device=x.device)
+
+    ac, rp = sol.acopf, sol.ramp
+    return sol.replace(
+        acopf=ac.replace(u=ac.u.replace(gen=noisy(ac.u.gen, 0.5)),
+                         v=ac.v.replace(gen=noisy(ac.v.gen, 0.5))),
+        ramp=rp.replace(u=noisy(rp.u, 0.5), s=noisy(rp.s, 0.05)))
+
+
+def _mp_hook_cases(model, sol, it):
+    """Every multi-period hook kernel's (kernel, plain) calls on one batch,
+    by kernel name, and the whole bus update; the unpack reads the ramp
+    kernel's result on the pack's batch, the solve and the writeback the
+    plain version's sums and rows, the final pass the plain tree's block
+    sums. With one period there is no ramp pack."""
+    from exaadmm_tpu_torch.models.acopf import kernels as K
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.models.mpacopf import ramp as R
+    from exaadmm_tpu_torch.ops import bus_cuda, tron_cuda
+    from exaadmm_tpu_torch.ops import mpacopf_cuda as MC
+
+    gd, ac = model.grid, sol.acopf
+    dtype, dev = ac.u.gen.dtype, ac.u.gen.device
+    bt = torch.tensor(1e3, dtype=dtype, device=dev)
+    res = None
+    if model.T > 1:
+        *batch, act = MC.ramp_pack(sol, model, it)
+        res = tron_cuda.tron_alm_packed(
+            tron_cuda.RAMP, *batch, active0=act,
+            **R.ramp_tolerances(model.par, dtype))
+    arcs, gens = MC.bus_values_plain(sol, model)
+    agg = bus_cuda.bus_scatter(arcs, gd.arc_bus, gd.arc_ptr, gd.arc_idx)
+    gsum = bus_cuda.bus_scatter(gens, gd.gen_bus, gd.gen_ptr, gd.gen_idx)
+    wtm = MC.bus_solve_plain(agg, gsum, gd, model.Pd, model.Qd)
+    _, _, part = MC.residual_partials_plain(sol, model)
+    line, rest = part[:MC.LINE_SUMS], part[MC.LINE_SUMS:]
+    cases = {
+        "mp_ramp_pack": (lambda: MC.ramp_pack(sol, model, it),
+                         lambda: R.ramp_pack_plain(sol, model, it)),
+        "mp_generator_unpack": (
+            lambda: MC.generator_unpack(sol, model, res),
+            lambda: MP.generator_unpack_plain(sol, model, res)),
+        "mp_bus_values": (lambda: MC.bus_values(sol, model),
+                          lambda: MC.bus_values_plain(sol, model)),
+        "mp_bus_solve": (
+            lambda: MC.bus_solve(agg, gsum, gd, model.Pd, model.Qd),
+            lambda: MC.bus_solve_plain(agg, gsum, gd, model.Pd, model.Qd)),
+        "mp_bus_writeback": (
+            lambda: MC.bus_writeback(sol, model, wtm),
+            lambda: K.bus_writeback(ac.u, ac.z, ac.l, ac.rho, wtm, gd,
+                                    model.next_ramp(sol.ramp))),
+        "mp_z": (lambda: MC.z_update(sol, model, bt),
+                 lambda: MP.z_update_plain(sol, model, bt)),
+        "mp_l": (lambda: MC.l_update(sol, model, bt),
+                 lambda: MP.l_update_plain(sol, model, bt)),
+        "mp_lz": (lambda: MC.lz_update(sol, model, bt),
+                  lambda: MP.lz_update_plain(sol, model, bt)),
+        "mp_residual_partials": (
+            lambda: MC.residual_partials(sol, model),
+            lambda: MC.residual_partials_plain(sol, model)),
+        "mp_residual_final": (lambda: MC.residual_final(line, rest),
+                              lambda: MC.residual_final_plain(line, rest)),
+        "mp_z, beta a float": (lambda: MC.z_update(sol, model, 1e3),
+                               lambda: MP.z_update_plain(sol, model, 1e3)),
+        "bus update (the hook)": (
+            lambda: MC.bus_update(sol, model, model.Pd, model.Qd),
+            lambda: MP.bus_update_plain(sol, model, model.Pd, model.Qd)),
+    }
+    if model.T == 1:
+        del cases["mp_ramp_pack"]
+    return cases
+
+
+def _mp_flat(x) -> list:
+    """The tensors of a hook's output, in order."""
+    from exaadmm_tpu_torch.utils.environment import (RAMP_FIELDS, Blocks,
+                                                     RampState)
+    if isinstance(x, Blocks):
+        return [x.gen, x.line]
+    if isinstance(x, RampState):
+        return [getattr(x, k) for k in RAMP_FIELDS]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _mp_flat(y)]
+    return [x]
+
+
+def _mp_scalars_held(label: str, model, sol) -> float:
+    """The residual's six scalars through the kernels against the plain
+    hook's ``torch.sum``: bit-identical on a rerun; in fp64 the square
+    roots within 1e-13 relative and the objective within 1e-13 of its
+    terms' magnitudes, in fp32 1e-5 (the same terms in another order).
+    Returns the largest difference."""
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.ops import mpacopf_cuda as MC
+    ac, gd = sol.acopf, model.grid
+    got = MC.residual_update(sol, model, 1e3)[2]
+    again = MC.residual_update(sol, model, 1e3)[2]
+    ref = MP.residual_update_plain(sol, model)[2]
+    tol = 1e-13 if ac.u.gen.dtype == torch.float64 else 1e-5
+    pg = gd.baseMVA * ac.u.gen[..., 0]
+    obj_mag = float(torch.sum((gd.c2 * (pg * pg)).abs()
+                              + (gd.c1 * pg).abs() + gd.c0.abs()))
+    worst = 0.0
+    for k in MC.SCALARS:
+        a, b = float(got[k]), float(ref[k])
+        _check(bool(torch.equal(got[k], again[k])),
+               f"phase 5h: {label}: residual {k} differs on a rerun")
+        lim = tol * (obj_mag if k in ("objval", "auglag") else abs(b))
+        _check(abs(a - b) <= lim, f"phase 5h: {label}: residual {k} {a!r} "
+                                  f"against torch.sum's {b!r}: "
+                                  f"{abs(a - b):.3e} > {lim:.3e}")
+        worst = max(worst, abs(a - b))
+    return worst
+
+
+def _bits(t):
+    """``t``'s bit patterns (a float tensor viewed as integers of its
+    width), so that equal NaNs compare equal."""
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def _bit_equal(a, b) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and bool(torch.equal(_bits(a), _bits(b))))
+
+
+def _mp_hooks_bits(label: str, model, sol, it, dev) -> dict:
+    """Every case of ``_mp_hook_cases`` twice against its plain version:
+    every output bit for bit the plain version's and the rerun's (a rank
+    window's bus solve meets buses whose lines are all on the other rank,
+    whose sums a mesh completes first: there both give the same infinities
+    and NaNs); then the scalars (``_mp_scalars_held``). Returns each
+    kernel's largest |difference| (0: bit-identical) and the scalars'
+    (``scalars`` in fp64, ``scalars f32``)."""
+    errs = {}
+    for name, (kern, plain) in _mp_hook_cases(model, sol, it).items():
+        got, again, ref = (_mp_flat(kern()), _mp_flat(kern()),
+                           _mp_flat(plain()))
+        _sync(dev)
+        same = len(got) == len(ref) and all(
+            _bit_equal(a, b) for a, b in zip(got, ref))
+        rerun = all(_bit_equal(a, b) for a, b in zip(got, again))
+        _check(same and rerun, f"phase 5h: {label}: {name}: bit-identical "
+                               f"to the plain version {same}, to a rerun "
+                               f"{rerun}")
+        errs[name] = 0.0
+    f64 = sol.acopf.u.gen.dtype == torch.float64
+    errs["scalars" if f64 else "scalars f32"] = _mp_scalars_held(label, model,
+                                                                 sol)
+    T, ngen = model.T, model.grid.ngen
+    print(f"phase 5h: {label}: T={T}, {ngen} gens, "
+          f"{sol.acopf.u.line.shape[1]} lines: {len(errs) - 1} kernels and "
+          f"hooks bit-identical to their plain versions and to a rerun; "
+          f"residual scalars against torch.sum's within "
+          f"{errs['scalars' if f64 else 'scalars f32']:.3e}")
+    return errs
+
+
+def phase5h_mp_hooks(dev, data, loads, T: int, on_card: bool,
+                     iters: int = 3) -> dict:
+    """The multi-period hook kernels (``csrc/mpacopf_hooks.cu``) against
+    their plain versions, each twice, every output bit for bit, on phase
+    5's model after ``iters`` inner iterations (``_mp_hook_state``: fp64
+    with inner_iter a 0-d tensor and an int, and fp32), case9 x 3 periods,
+    case9 x 1 period and each of two rank windows of phase 5's model padded
+    to an even line count; the residual's scalars against ``torch.sum``.
+    Then, on the fp64 batch: each kernel's device ms per launch and its
+    plain version's (the host kept ahead), the bounds of ``ops/bounds.py``,
+    each hook's plain and kernel forms eager and captured as a graph, and
+    an empty kernel's device ms."""
+    from exaadmm_tpu_torch.models.mpacopf import model as MP
+    from exaadmm_tpu_torch.ops import acopf_cuda, bounds
+    from exaadmm_tpu_torch.ops import mpacopf_cuda as MC
+    from exaadmm_tpu_torch.utils.environment import Parameters
+    from exaadmm_tpu_torch.utils.opfdata import load_time_series, \
+        opf_loaddata
+    from exaadmm_tpu_torch.utils.timing import time_ms
+
+    reps, hook_reps, plain_reps = (200, 100, 4) if on_card else (2, 2, 1)
+    par = Parameters(verbose=0)
+    model = _mp_model(dev, data, loads, T, torch.float64, par)
+    sol = _mp_hook_state(model, iters)
+    it_t = torch.tensor(iters + 1, dtype=torch.int64, device=dev)
+    out = {"errs": {}}
+    batches = [(f"{data.case} x {T} fp64, inner_iter a tensor", model, sol,
+                it_t),
+               (f"{data.case} x {T} fp64, inner_iter 1", model, sol, 1)]
+    m32 = _mp_model(dev, data, loads, T, torch.float32, par)
+    batches.append((f"{data.case} x {T} fp32", m32, sol.to(torch.float32),
+                    it_t))
+    data9 = opf_loaddata(CASE9, verbose=0)
+    loads9 = load_time_series(DEMAND9)
+    for T9 in (3, 1):
+        m9 = _mp_model(dev, data9, loads9, T9, torch.float64, par)
+        batches.append((f"case9 x {T9}", m9, _mp_hook_state(m9, iters),
+                        iters + 1))
+    padded = MP.build_model(data, par, *loads, end_period=T,
+                            pad_lines_to=RANKS, device=dev)
+    psol = _mp_hook_state(padded, iters)
+    for rank, lm, ls in _rank_views(padded, psol):
+        batches.append((f"{data.case} x {T} rank {rank} of {RANKS}", lm, ls,
+                        it_t))
+    for label, m, s_, it in batches:
+        errs = _mp_hooks_bits(label, m, s_, it, dev)
+        for k, v in errs.items():
+            out["errs"][k] = max(out["errs"].get(k, 0.0), v)
+    out["cases"] = len(batches)
+
+    gd = model.grid
+    ngen, nline, nbus = gd.ngen, sol.acopf.u.line.shape[1], gd.nbus
+    nb = MC.residual_blocks(ngen, nline)
+    cases = _mp_hook_cases(model, sol, it_t)
+    for name in MP_HOOK_KERNELS:
+        kern, plain = cases[name]
+        ms, enq = time_ms(kern, dev, reps)
+        plain_ms, plain_enq = time_ms(plain, dev, plain_reps)
+        nbytes = bounds.mpacopf_hook_bytes(
+            name, T, ngen, nline, nbus, 8, nb,
+            scalar_tensor=name in ("mp_ramp_pack", "mp_z", "mp_l", "mp_lz"))
+        bound_ms, bound_by = bounds.bound(
+            nbytes["total"], bounds.mpacopf_hook_ops(name, T, ngen, nline,
+                                                     nbus, nb))
+        err = out["errs"][name]
+        if name == "mp_residual_final":
+            err = max(err, out["errs"]["scalars"])
+        out[name] = dict(ms=ms, enqueue_ms=enq, plain_ms=plain_ms,
+                         plain_enqueue_ms=plain_enq, bound_ms=bound_ms,
+                         bound_by=bound_by, bytes=nbytes["total"],
+                         max_abs_err=err)
+        print(f"phase 5h: {name}: device ms per launch {ms:.5f} (plain "
+              f"{plain_ms:.5f}), bound {bound_ms:.5f} ({bound_by}, "
+              f"{nbytes['total']} B); host enqueue ms per call {enq:.5f} "
+              f"(plain {plain_enq:.5f})")
+
+    # each hook whole: the plain form and the kernels' form, eager and
+    # captured as a graph (x: the ramp pack and the unpack, around the
+    # TRON kernels, which neither form changes)
+    unpack_k, unpack_p = cases["mp_generator_unpack"]
+    pack_k, pack_p = cases["mp_ramp_pack"]
+    kz, pz = cases["mp_z"]
+    kl, pl = cases["mp_l"]
+    klz, plz = cases["mp_lz"]
+    hooks = {
+        "x (ramp pack, unpack)": (lambda: (pack_p(), unpack_p()),
+                                  lambda: (pack_k(), unpack_k())),
+        "xbar": cases["bus update (the hook)"][::-1],
+        "z": (pz, kz), "l": (pl, kl), "lz": (plz, klz),
+        "residual": (lambda: MP.residual_update_plain(sol, model),
+                     lambda: MC.residual_update(sol, model, 1e3)),
+    }
+    out["hooks"] = {}
+    for name, (plain, kern) in hooks.items():
+        r = dict(plain_eager=time_ms(plain, dev, plain_reps)[0],
+                 plain_graph=_graph_ms(dev, plain, reps),
+                 kernel_eager=time_ms(kern, dev, hook_reps)[0],
+                 kernel_graph=_graph_ms(dev, kern, reps))
+        out["hooks"][name] = r
+        print(f"phase 5h: hook {name}: device ms plain {r['plain_eager']:.5f}"
+              f" eager, {r['plain_graph']:.5f} in a graph; kernels "
+              f"{r['kernel_eager']:.5f} eager, {r['kernel_graph']:.5f} in a "
+              f"graph")
+    floor = None
+    if on_card:
+        floor = time_ms(lambda: acopf_cuda.launch_floor(dev), dev, reps)[0]
+    out["floor_ms"] = floor
+    print(f"phase 5h: {data.case} x {T} ({nbus} buses, {nline} lines, {ngen}"
+          f" gens), {iters} inner iterations in, {out['cases']} batches "
+          f"held; an empty kernel's device ms per launch: "
+          f"{'not measured on the CPU' if floor is None else f'{floor:.5f}'}")
+    return out
 
 
 def phase3c_case9_qpsub(dev, on_card: bool) -> dict:
@@ -2680,13 +3095,16 @@ def _fused_pair(dev, label: str, call, periods, on_card: bool,
         # that did not solve and the fused loop's tail in every round
         outers = sum(i.outer for i, _ in fused)
         solved = sum(i.status == "Solved" for i, _ in fused)
-        acopf = lh["acopf_z"] > 0
         want = {k: n + WARMUP * n // cumul for k, n in lh.items()}
         want["graph_loop"] = trips
-        want["acopf_lz"] = outers + WARMUP if acopf else 0
-        _check(lh["acopf_lz"] == (outers - solved if acopf else 0),
-               f"phase 11 {label}: host loop lz launches {lh}")
-        _check(all(n % cumul == 0 for k, n in lh.items() if k != "acopf_lz")
+        per_outer = {"acopf_lz": "acopf_z", "mp_lz": "mp_z"}
+        for lz, z in per_outer.items():
+            ran = lh[z] > 0
+            want[lz] = outers + WARMUP if ran else 0
+            _check(lh[lz] == (outers - solved if ran else 0),
+                   f"phase 11 {label}: host loop {lz} launches {lh}")
+        _check(all(n % cumul == 0 for k, n in lh.items()
+                   if k not in per_outer)
                and lf == want,
                f"phase 11 {label}: launches fused {lf}, host {lh}, "
                f"expected fused {want}")
@@ -3099,6 +3517,7 @@ def run(device, big_data, mp_data, mp_loads, T: int,
     results["hooks"] = phase4h_hooks(dev, big_data, on_card)
     results["main"] = phase4_main(dev, big_data, on_card)
     results["main_mp"] = phase5_mpacopf(dev, *mp)
+    results["mp_hooks"] = phase5h_mp_hooks(dev, *mp)
     results["main_qp"] = phase6_qpsub(dev, big_data, on_card)
     results["main_mpec"] = phase7_mpec(dev, big_data, on_card)
     results["main_polar"] = phase4_main(dev, big_data, on_card,
@@ -3146,7 +3565,9 @@ def run(device, big_data, mp_data, mp_loads, T: int,
     for name, replaces, key, src in (
             [(k, v, "hooks", "acopf_hooks") for k, v in HOOK_KERNELS.items()]
             + [(k, v, "branch_io", "branch_io")
-               for k, v in BRANCH_IO_KERNELS.items()]):
+               for k, v in BRANCH_IO_KERNELS.items()]
+            + [(k, v, "mp_hooks", "mpacopf_hooks")
+               for k, v in MP_HOOK_KERNELS.items()]):
         r = results[key][name]
         kern.append({"name": name, "route": "cuda",
                      "source": KERNEL_SOURCES[src][0],

@@ -13,7 +13,9 @@ Counterpart of ``exaadmm_tpu/models/acopf/kernels.py``:
 These are the plain versions of the hook kernels of ``ops/acopf_cuda.py``
 (``csrc/acopf_hooks.cu``), which ``ModelAcopf`` calls: there a CPU tensor
 runs them, and the card's kernels are held bit-identical to them. The
-multi-period, QP-subproblem and MPEC models call them directly.
+multi-period model's plain hooks (``models/mpacopf/model.py``, the CPU
+route of ``ops/mpacopf_cuda.py``) and the QP-subproblem and MPEC models
+call them directly.
 """
 
 from __future__ import annotations

@@ -24,13 +24,20 @@ from the previous iteration, so the period axis is a batch axis:
 - z / l / lz / residual are elementwise with a leading (T,) axis; the
   scalars are the maximum over periods of per-period 2-norms
   (mpacopf_admm_update_residual_cpu.jl:42-48).
+
+Every hook but the prestep goes through ``ops/mpacopf_cuda.py``: on the card
+one hand-written kernel each (``csrc/mpacopf_hooks.cu``: the ramp batch's
+pack, the generator and ramp unpack, the bus values, solve and writeback
+around the two scatters, z, l, lz, the residual's two passes), on the CPU the
+plain functions at the end of this module, which the kernels are held
+bit-identical to.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...ops import tron_cuda
+from ...ops import mpacopf_cuda, tron_cuda
 from ...parallel.sharding import all_reduce_sum
 from ...utils.environment import (SOLUTION_BLOCKS, Blocks, BranchALMState,
                                   Parameters, RampState, Solution,
@@ -40,7 +47,7 @@ from ...utils.opfdata import OPFData
 from ..acopf import kernels
 from ..acopf import model as acopf_model
 from ..acopf.branch import branch_update
-from .ramp import ramp_inputs, ramp_tolerances
+from .ramp import ramp_tolerances
 
 
 class ModelMpacopf:
@@ -104,7 +111,10 @@ class ModelMpacopf:
                               torch.zeros_like(getattr(rp, k)[:1])])
                 for k in ("u", "z", "l", "rho")}
 
-    # ---- hooks called by the ADMM driver ----
+    # ---- hooks called by the ADMM driver: the closed-form ones and the
+    # ramp batch's pack and unpack go through ``ops/mpacopf_cuda.py`` (the
+    # hand-written kernels on the card, the plain functions below on the
+    # CPU) ----
     def inner_prestep(self, sol: SolutionMpacopf) -> SolutionMpacopf:
         return sol.replace(acopf=sol.acopf.replace(z_prev=sol.acopf.z),
                            ramp=sol.ramp.replace(z_prev=sol.ramp.z))
@@ -112,42 +122,16 @@ class ModelMpacopf:
     def update_x(self, sol: SolutionMpacopf, inner_iter):
         """x update: closed-form qg (all periods) and pg (period 1), the
         ramp batch for pg of periods 2..T, and the T-period branch batch."""
-        gd = self.grid
-        T, ngen = self.T, gd.ngen
-        ac, rp = sol.acopf, sol.ramp
-
-        lq, rq = ac.l.gen[..., 1], ac.rho.gen[..., 1]
-        qg = torch.clamp(
-            (-(lq + rq * (-ac.v.gen[..., 1] + ac.z.gen[..., 1]))) / rq,
-            min=gd.qgmin, max=gd.qgmax)
-        lp0, rp0 = ac.l.gen[0, :, 0], ac.rho.gen[0, :, 0]
-        pg0 = torch.clamp(
-            (-(self.c1_eff * gd.baseMVA + lp0
-               + rp0 * (-ac.v.gen[0, :, 0] + ac.z.gen[0, :, 0])))
-            / (2.0 * self.c2_eff * gd.baseMVA**2 + rp0),
-            min=gd.pgmin, max=gd.pgmax)
-
-        if T == 1:
-            # no period to couple: no ramp batch to launch
-            pg, ramp_new = pg0[None], rp
-        else:
-            x0, xl, xu, params, lam0, mu0 = ramp_inputs(sol, self, inner_iter)
-            res = tron_cuda.tron_alm_ramp(
-                x0, xl, xu, params, lam0, mu0,
-                **ramp_tolerances(self.par, x0.dtype))
-            pg = torch.cat([pg0[None], res.x[0].reshape(T - 1, ngen)])
-
-            def pad0(a):
-                return torch.cat([torch.zeros_like(a[:1]), a])
-
-            ramp_new = rp.replace(
-                u=pad0(res.x[1].reshape(T - 1, ngen)),
-                s=pad0(res.x[2].reshape(T - 1, ngen)),
-                alm_mu=pad0(res.lam[0].reshape(T - 1, ngen)),
-                alm_xi=torch.cat([rp.alm_xi[:1],
-                                  res.mu.reshape(T - 1, ngen)]),
-            )
-        u_gen = torch.stack([pg, qg], dim=-1)
+        T = self.T
+        ac = sol.acopf
+        res = None
+        if T > 1:
+            # with one period there is nothing to couple: no ramp batch
+            *batch, act = mpacopf_cuda.ramp_pack(sol, self, inner_iter)
+            res = tron_cuda.tron_alm_packed(
+                tron_cuda.RAMP, *batch, active0=act,
+                **ramp_tolerances(self.par, ac.u.gen.dtype))
+        u_gen, ramp_new = mpacopf_cuda.generator_unpack(sol, self, res)
 
         nlp = ac.u.line.shape[1]
         u_line, alm, stats = branch_update(
@@ -162,75 +146,150 @@ class ModelMpacopf:
 
     def update_xbar(self, sol: SolutionMpacopf, Pd=None,
                     Qd=None) -> SolutionMpacopf:
-        ac = sol.acopf
-        v = kernels.bus_update(ac.u, ac.z, ac.l, ac.rho, self.grid,
-                               Pd=self.Pd if Pd is None else Pd,
-                               Qd=self.Qd if Qd is None else Qd,
-                               ramp=self.next_ramp(sol.ramp))
-        return sol.replace(acopf=ac.replace(v=v))
+        v = mpacopf_cuda.bus_update(sol, self, self.Pd if Pd is None else Pd,
+                                    self.Qd if Qd is None else Qd)
+        return sol.replace(acopf=sol.acopf.replace(v=v))
 
     def update_z(self, sol: SolutionMpacopf, beta) -> SolutionMpacopf:
-        ac, rp = sol.acopf, sol.ramp
-        z_ac = kernels.z_update(ac.u, ac.v, ac.l, ac.rho, ac.lz, beta)
-        safe_rho = torch.where(rp.rho > 0, rp.rho, torch.ones_like(rp.rho))
-        z_r = (-(rp.lz + rp.l + safe_rho * (rp.u - self._v_pg_prev(ac)))) / (
-            beta + safe_rho)
-        z_r = z_r * self.ramp_mask
-        return sol.replace(acopf=ac.replace(z=z_ac), ramp=rp.replace(z=z_r))
+        z_ac, z_r = mpacopf_cuda.z_update(sol, self, beta)
+        return sol.replace(acopf=sol.acopf.replace(z=z_ac),
+                           ramp=sol.ramp.replace(z=z_r))
 
     def update_l(self, sol: SolutionMpacopf, beta) -> SolutionMpacopf:
-        ac, rp = sol.acopf, sol.ramp
-        l_ac = kernels.l_update(ac.z, ac.lz, beta)
-        l_r = -(rp.lz + beta * rp.z) * self.ramp_mask
-        return sol.replace(acopf=ac.replace(l=l_ac), ramp=rp.replace(l=l_r))
+        l_ac, l_r = mpacopf_cuda.l_update(sol, self, beta)
+        return sol.replace(acopf=sol.acopf.replace(l=l_ac),
+                           ramp=sol.ramp.replace(l=l_r))
 
     def update_lz(self, sol: SolutionMpacopf, beta) -> SolutionMpacopf:
-        ac, rp = sol.acopf, sol.ramp
-        cap = self.par.MAX_MULTIPLIER
-        lz_ac = kernels.lz_update(ac.z, ac.lz, beta, cap)
-        lz_r = torch.clamp(rp.lz + beta * rp.z, -cap, cap)
-        return sol.replace(acopf=ac.replace(lz=lz_ac),
-                           ramp=rp.replace(lz=lz_r))
+        lz_ac, lz_r = mpacopf_cuda.lz_update(sol, self, beta)
+        return sol.replace(acopf=sol.acopf.replace(lz=lz_ac),
+                           ramp=sol.ramp.replace(lz=lz_r))
 
     def update_residual(self, sol: SolutionMpacopf, beta):
-        gd = self.grid
-        ac, rp = sol.acopf, sol.ramp
-        m = gd.line_mask[:, None]
+        rp_b, rd_b, scalars = mpacopf_cuda.residual_update(sol, self, beta)
+        return sol.replace(acopf=sol.acopf.replace(rp=rp_b, rd=rd_b)), scalars
 
-        rp_b = Blocks(gen=ac.u.gen - ac.v.gen + ac.z.gen,
-                      line=ac.u.line - ac.v.line + ac.z.line)
-        rd_b = Blocks(gen=ac.z.gen - ac.z_prev.gen,
-                      line=ac.z.line - ac.z_prev.line)
-        ax_by = Blocks(gen=rp_b.gen - ac.z.gen, line=rp_b.line - ac.z.line)
 
-        line_sq = [torch.sum(b.line * b.line * m, dim=(1, 2))
-                   for b in (rp_b, rd_b, ac.z, ax_by)]
-        if gd.mesh is not None:
-            # lines split across ranks: the (4, T) line sums in one
-            # all-reduce, the replicated generator sums added after it
-            line_sq = all_reduce_sum(torch.stack(line_sq), gd.mesh).unbind()
+# ---- the hooks' plain versions (the CPU route of ``ops/mpacopf_cuda.py``,
+# and what its kernels are held bit-identical to on the card)
 
-        mask = self.ramp_mask
-        rp_r = (rp.u - self._v_pg_prev(ac) + rp.z) * mask
-        rd_r = (rp.z - rp.z_prev) * mask
-        z_r = rp.z * mask
+def generator_unpack_plain(sol: SolutionMpacopf, model: ModelMpacopf, res):
+    """The generator rows of the x update and the new ramp state: (u_gen
+    (T, ngen, 2), RampState). qg of every period and pg of period 1 in
+    closed form; pg of periods 2..T, the ramp copies ``u``, slacks ``s``
+    and ALM state from the ramp batch's result ``res`` (row 0 stays inert:
+    zeros, and period 1's ``alm_xi`` kept). With T == 1 there is no batch
+    (``res`` None) and the ramp state comes back as it was."""
+    gd = model.grid
+    T, ngen = model.T, gd.ngen
+    ac, rp = sol.acopf, sol.ramp
 
-        # per-period 2-norms, the ramp coupling folded into the later
-        # period, and the maximum over periods
-        def norm(i: int, b: Blocks, r):
-            per_period_sq = torch.sum(b.gen * b.gen, dim=(1, 2)) + line_sq[i]
-            return torch.amax(torch.sqrt(per_period_sq
-                                         + torch.sum(r * r, dim=1)))
+    lq, rq = ac.l.gen[..., 1], ac.rho.gen[..., 1]
+    qg = torch.clamp(
+        (-(lq + rq * (-ac.v.gen[..., 1] + ac.z.gen[..., 1]))) / rq,
+        min=gd.qgmin, max=gd.qgmax)
+    lp0, rp0 = ac.l.gen[0, :, 0], ac.rho.gen[0, :, 0]
+    pg0 = torch.clamp(
+        (-(model.c1_eff * gd.baseMVA + lp0
+           + rp0 * (-ac.v.gen[0, :, 0] + ac.z.gen[0, :, 0])))
+        / (2.0 * model.c2_eff * gd.baseMVA**2 + rp0),
+        min=gd.pgmin, max=gd.pgmax)
 
-        pg = gd.baseMVA * ac.u.gen[..., 0]
-        objval = torch.sum(gd.c2 * (pg * pg) + gd.c1 * pg + gd.c0)
-        scalars = {
-            "primres": norm(0, rp_b, rp_r), "dualres": norm(1, rd_b, rd_r),
-            "norm_z_curr": norm(2, ac.z, z_r),
-            "mismatch": norm(3, ax_by, rp_r - z_r),
-            "objval": objval, "auglag": objval,
-        }
-        return sol.replace(acopf=ac.replace(rp=rp_b, rd=rd_b)), scalars
+    if T == 1:
+        pg, ramp_new = pg0[None], rp
+    else:
+        pg = torch.cat([pg0[None], res.x[0].reshape(T - 1, ngen)])
+
+        def pad0(a):
+            return torch.cat([torch.zeros_like(a[:1]), a])
+
+        ramp_new = rp.replace(
+            u=pad0(res.x[1].reshape(T - 1, ngen)),
+            s=pad0(res.x[2].reshape(T - 1, ngen)),
+            alm_mu=pad0(res.lam[0].reshape(T - 1, ngen)),
+            alm_xi=torch.cat([rp.alm_xi[:1],
+                              res.mu.reshape(T - 1, ngen)]),
+        )
+    return torch.stack([pg, qg], dim=-1), ramp_new
+
+
+def bus_update_plain(sol: SolutionMpacopf, model: ModelMpacopf, Pd,
+                     Qd) -> Blocks:
+    """The bus update of all periods, period t + 1's ramp terms blended
+    into period t's pg rows; returns the new v."""
+    ac = sol.acopf
+    return kernels.bus_update(ac.u, ac.z, ac.l, ac.rho, model.grid, Pd=Pd,
+                              Qd=Qd, ramp=model.next_ramp(sol.ramp))
+
+
+def z_update_plain(sol: SolutionMpacopf, model: ModelMpacopf, beta):
+    """(z of the ADMM blocks, z of the ramp coupling)."""
+    ac, rp = sol.acopf, sol.ramp
+    z_ac = kernels.z_update(ac.u, ac.v, ac.l, ac.rho, ac.lz, beta)
+    safe_rho = torch.where(rp.rho > 0, rp.rho, torch.ones_like(rp.rho))
+    z_r = (-(rp.lz + rp.l + safe_rho * (rp.u - model._v_pg_prev(ac)))) / (
+        beta + safe_rho)
+    return z_ac, z_r * model.ramp_mask
+
+
+def l_update_plain(sol: SolutionMpacopf, model: ModelMpacopf, beta):
+    """(l of the ADMM blocks, l of the ramp coupling)."""
+    ac, rp = sol.acopf, sol.ramp
+    l_ac = kernels.l_update(ac.z, ac.lz, beta)
+    return l_ac, -(rp.lz + beta * rp.z) * model.ramp_mask
+
+
+def lz_update_plain(sol: SolutionMpacopf, model: ModelMpacopf, beta):
+    """(lz of the ADMM blocks, lz of the ramp coupling)."""
+    ac, rp = sol.acopf, sol.ramp
+    cap = model.par.MAX_MULTIPLIER
+    lz_ac = kernels.lz_update(ac.z, ac.lz, beta, cap)
+    return lz_ac, torch.clamp(rp.lz + beta * rp.z, -cap, cap)
+
+
+def residual_update_plain(sol: SolutionMpacopf, model: ModelMpacopf):
+    """(rp, rd, scalars): the residual blocks and the maximum over periods
+    of the per-period 2-norms, the ramp coupling folded into the later
+    period (mpacopf_admm_update_residual_cpu.jl:42-48); ``auglag`` is the
+    objective."""
+    gd = model.grid
+    ac, rp = sol.acopf, sol.ramp
+    m = gd.line_mask[:, None]
+
+    rp_b = Blocks(gen=ac.u.gen - ac.v.gen + ac.z.gen,
+                  line=ac.u.line - ac.v.line + ac.z.line)
+    rd_b = Blocks(gen=ac.z.gen - ac.z_prev.gen,
+                  line=ac.z.line - ac.z_prev.line)
+    ax_by = Blocks(gen=rp_b.gen - ac.z.gen, line=rp_b.line - ac.z.line)
+
+    line_sq = [torch.sum(b.line * b.line * m, dim=(1, 2))
+               for b in (rp_b, rd_b, ac.z, ax_by)]
+    if gd.mesh is not None:
+        # lines split across ranks: the (4, T) line sums in one
+        # all-reduce, the replicated generator sums added after it
+        line_sq = all_reduce_sum(torch.stack(line_sq), gd.mesh).unbind()
+
+    mask = model.ramp_mask
+    rp_r = (rp.u - model._v_pg_prev(ac) + rp.z) * mask
+    rd_r = (rp.z - rp.z_prev) * mask
+    z_r = rp.z * mask
+
+    # per-period 2-norms, the ramp coupling folded into the later
+    # period, and the maximum over periods
+    def norm(i: int, b: Blocks, r):
+        per_period_sq = torch.sum(b.gen * b.gen, dim=(1, 2)) + line_sq[i]
+        return torch.amax(torch.sqrt(per_period_sq
+                                     + torch.sum(r * r, dim=1)))
+
+    pg = gd.baseMVA * ac.u.gen[..., 0]
+    objval = torch.sum(gd.c2 * (pg * pg) + gd.c1 * pg + gd.c0)
+    scalars = {
+        "primres": norm(0, rp_b, rp_r), "dualres": norm(1, rd_b, rd_r),
+        "norm_z_curr": norm(2, ac.z, z_r),
+        "mismatch": norm(3, ax_by, rp_r - z_r),
+        "objval": objval, "auglag": objval,
+    }
+    return rp_b, rd_b, scalars
 
 
 def build_model(data: OPFData, par: Parameters, pd_mat, qd_mat, *,
@@ -248,9 +307,12 @@ def build_model(data: OPFData, par: Parameters, pd_mat, qd_mat, *,
     T = end_period - start_period + 1
 
     def loads(mat):
+        # (T, nbus) rows in memory order: the bus kernels take contiguous
+        # loads, each period's row too (the warm start's single-period
+        # solves)
         cols = mat[:, start_period - 1:end_period].T
-        return torch.as_tensor(cols, dtype=torch.float64).to(device=device,
-                                                             dtype=dtype)
+        return torch.as_tensor(cols, dtype=torch.float64).to(
+            device=device, dtype=dtype).contiguous()
 
     return ModelMpacopf(grid=gd, par=par, T=T, Pd=loads(pd_mat),
                         Qd=loads(qd_mat), use_linelimit=use_linelimit)

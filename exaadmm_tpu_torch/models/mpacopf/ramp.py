@@ -14,13 +14,16 @@ go through ``ops/tron_cuda.py::tron_alm_ramp``; derivatives are closed form
 (the JAX package differentiates ``gen_obj`` by autodiff).
 
 Parameters are a dict of (B,) tensors under ``PARAM_KEYS``, the row order of
-the kernel's packed (9, B) block.
+the kernel's packed (9, B) block. ``ramp_pack_plain`` is the plain version of
+the pack kernel of ``ops/mpacopf_cuda.py`` (``mp_ramp_pack``), which writes
+that block and the batch's other inputs in one launch on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...ops import tron_cuda
 from ...utils.environment import SolutionMpacopf, on_first_iteration
 from ..acopf.branch import branch_tolerances
 
@@ -118,3 +121,13 @@ def ramp_inputs(sol: SolutionMpacopf, model, inner_iter):
                              torch.full_like(params["baseMVA"], 10.0),
                              flat(rp.alm_xi))
     return x0, xl, xu, params, flat(rp.alm_mu)[None], mu0
+
+
+def ramp_pack_plain(sol: SolutionMpacopf, model, inner_iter):
+    """``ramp_inputs`` followed by the pack, in their op order: x0, xl, xu
+    (3, B), the (9, B) parameter block in ``PARAM_KEYS`` order, lam0 (1, B),
+    mu0 (B,) and the uint8 flags active0 (B,), all ones (every ramp lane
+    runs). The plain version of ``mpacopf_cuda.ramp_pack``."""
+    x0, xl, xu, params, lam0, mu0 = ramp_inputs(sol, model, inner_iter)
+    act = torch.ones(x0.shape[1], dtype=torch.uint8, device=x0.device)
+    return x0, xl, xu, tron_cuda.pack_ramp_params(params), lam0, mu0, act

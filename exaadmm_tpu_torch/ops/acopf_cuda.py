@@ -32,9 +32,11 @@ loop's) by value. Nothing here reads device data back.
 Which models run these kernels is a rule by model: ``ModelAcopf``'s hooks
 (every path of a single-period solve: with and without line limits, the
 projection, rolling horizon, mixed precision, ``sort_lines``, a mesh, the
-host loop and the fused graph). The multi-period, QP-subproblem and MPEC
-models call the plain functions of ``models/acopf/kernels.py`` (a period
-axis, the ramp blend, other blocks); their kernels are the next slice.
+host loop and the fused graph). The multi-period model runs its own
+(``ops/mpacopf_cuda.py``: a period axis, the ramp blend); the
+QP-subproblem and MPEC models call the plain functions of
+``models/acopf/kernels.py`` (other blocks); their kernels are the next
+slices.
 
 ``launches`` counts the kernels' launches by name (``KERNELS``), a launch
 that a fused driver's graph replays once per replay

@@ -242,3 +242,109 @@ def branch_io_ops(name: str, B: int, n: int) -> int:
     if name == "branch_stats":
         return 3 * -(-B // 256) + 2
     return B * _BRANCH_IO_OPS[(name, n)]
+
+
+# the multi-period hook kernels (``csrc/mpacopf_hooks.cu``): per kernel, the
+# values read and written as multiples of (N, the elements of the ADMM
+# blocks of all periods, T (2 ngen + 8 nline); G = T ngen, a generator
+# column or the ramp block; L = T nline, a line column of all periods;
+# B = (T - 1) ngen, the ramp lanes or the ramp rows after period 1; ngen,
+# a grid generator array; nline, the line mask; T nbus; the residual's
+# block sums, 13 T nblocks), by hand from the source: the bytes each input
+# and output must move once. Index arrays are int64 (counted apart, in
+# ``_MP_INDEX``).
+_MP_VALUES = {
+    #              (N, G, L, B, ngen, nline, T nbus, sums): read, then write
+    # the pg columns of u, l, rho, z (B each) and of v (G); the ramp's u,
+    # s, l, rho, z, alm_mu, alm_xi (B each); c2, c1, pgmin, pgmax, the ramp
+    # rate; x0, xl, xu, the 9 parameter rows, lam0 and mu0
+    "mp_ramp_pack": ((0, 1, 0, 11, 5, 0, 0, 0), (0, 0, 0, 20, 0, 0, 0, 0)),
+    # the qg columns of v, z, l, rho (G each), their pg columns of period 1
+    # (ngen each), the six generator arrays, alm_xi of period 1, the
+    # batch's x, lam and mu (5 B); u_gen and the four new ramp rows
+    "mp_generator_unpack": ((0, 4, 0, 5, 11, 0, 0, 0),
+                            (0, 6, 0, 0, 0, 0, 0, 0)),
+    # the 4 line blocks (32 L), the mask, the 4 generator blocks (8 G), the
+    # ramp's u, z, l, rho after period 1 (4 B); the arc and generator rows
+    "mp_bus_values": ((0, 8, 32, 4, 0, 1, 0, 0), (0, 4, 16, 0, 0, 0, 0, 0)),
+    # the folded sums (12 T nbus), the loads (2 T nbus), the two shunts
+    # (counted as T nbus / T each, below); the (T, nbus, 4) rows
+    "mp_bus_solve": ((0, 0, 0, 0, 0, 0, 14, 0), (0, 0, 0, 0, 0, 0, 4, 0)),
+    # columns 0-3 of the 4 line blocks (16 L), the 4 generator blocks, the
+    # ramp terms, the buses' rows; v
+    "mp_bus_writeback": ((0, 8, 16, 4, 0, 0, 4, 0), (0, 2, 8, 0, 0, 0, 0, 0)),
+    # five ADMM vectors; the ramp's u, l, rho, lz and v's pg column before
+    # the last period; z and the ramp's z
+    "mp_z": ((5, 4, 0, 1, 0, 0, 0, 0), (1, 1, 0, 0, 0, 0, 0, 0)),
+    "mp_l": ((2, 2, 0, 0, 0, 0, 0, 0), (1, 1, 0, 0, 0, 0, 0, 0)),
+    "mp_lz": ((2, 2, 0, 0, 0, 0, 0, 0), (1, 1, 0, 0, 0, 0, 0, 0)),
+    # u, v, z, z_prev; the ramp's u, z, z_prev and v's pg column; the mask,
+    # c2, c1, c0; rp, rd and the block sums
+    "mp_residual_partials": ((4, 3, 0, 1, 3, 1, 0, 0),
+                             (2, 0, 0, 0, 0, 0, 0, 1)),
+    "mp_residual_final": ((0, 0, 0, 0, 0, 0, 0, 1), (0, 0, 0, 0, 0, 0, 0, 0)),
+}
+# int64 index values read: (per nline, per ngen)
+_MP_INDEX = {"mp_bus_writeback": (2, 1)}
+# operations per unit, by hand from the source (each add, subtract,
+# multiply, divide, negation and square root one; comparisons none):
+# (per N element, per G, per L, per B, per T nbus, per block sum, fixed,
+# per period)
+_MP_OPS = {
+    # the two cost products, t_p, t_h and the negated ramp rate
+    "mp_ramp_pack": (0, 0, 0, 5, 0, 0, 0, 0),
+    # qg's 6; pg's closed form (9) in period 1, counted on every row
+    "mp_generator_unpack": (0, 15, 0, 0, 0, 0, 0, 0),
+    # the arc rows' 20 a side; the pg row with the blend (9), the qg row
+    # (3), the two reciprocals
+    "mp_bus_values": (0, 14, 40, 0, 0, 0, 0, 0),
+    "mp_bus_solve": (0, 0, 0, 0, 38, 0, 0, 0),
+    "mp_bus_writeback": (0, 13, 16, 0, 0, 0, 0, 0),
+    # 7 per element; the ramp's 8 and its mask
+    "mp_z": (7, 9, 0, 0, 0, 0, 0, 0),
+    "mp_l": (3, 4, 0, 0, 0, 0, 0, 0),
+    "mp_lz": (2, 2, 0, 0, 0, 0, 0, 0),
+    # rp, rd, rp - z and 4 squares per element, the mask's 4 multiplies
+    # on a line element (32 a line), the tree's adds (one per sum row and
+    # element); the ramp's 13; the objective's 7 per generator
+    "mp_residual_partials": (7, 20, 32, 0, 0, 0, 0, 0),
+    # one add per block sum; per period 4 x (2 adds and a square root) and
+    # the objective's add
+    "mp_residual_final": (0, 0, 0, 0, 0, 1, 0, 13),
+}
+
+
+def mpacopf_hook_bytes(name: str, T: int, ngen: int, nline: int, nbus: int,
+                       itemsize: int, nblocks: int = 0,
+                       scalar_tensor: bool = False) -> dict:
+    """Bytes of one launch of the multi-period hook kernel ``name`` on T
+    periods of ``ngen`` generators, ``nline`` (padded) lines and ``nbus``
+    buses; ``nblocks`` the residual's blocks per period; ``scalar_tensor``
+    a beta or inner_iter read from the device."""
+    n = T * (2 * ngen + 8 * nline)
+    units = (n, T * ngen, T * nline, (T - 1) * ngen, ngen, nline, T * nbus,
+             13 * T * nblocks)
+    read, write = (sum(a * b for a, b in zip(c, units))
+                   for c in _MP_VALUES[name])
+    if name == "mp_bus_solve":   # the shunts, read once
+        read += 2 * nbus
+    if name == "mp_generator_unpack" and T == 1:   # no batch, no ramp rows
+        read -= ngen
+        write -= 4 * ngen
+    per_line, per_gen = _MP_INDEX.get(name, (0, 0))
+    parts = {"read": read * itemsize + (per_line * nline + per_gen * ngen)
+             * 8 + (8 if scalar_tensor else 0),
+             "write": write * itemsize}
+    if name == "mp_ramp_pack":   # the uint8 flags
+        parts["write"] += (T - 1) * ngen
+    parts["total"] = parts["read"] + parts["write"]
+    return parts
+
+
+def mpacopf_hook_ops(name: str, T: int, ngen: int, nline: int, nbus: int,
+                     nblocks: int = 0) -> int:
+    """Operations of one launch of the multi-period hook kernel ``name``."""
+    n = T * (2 * ngen + 8 * nline)
+    units = (n, T * ngen, T * nline, (T - 1) * ngen, T * nbus,
+             13 * T * nblocks, 1, T)
+    return sum(a * b for a, b in zip(_MP_OPS[name], units))

@@ -22,9 +22,10 @@ machine; on a CPU tensor it runs the plain version
 ``ops/tron.py::tron_alm_batched`` with the instance's functions; any other
 device raises.
 
-``tron_alm_packed`` launches the branch or polar instance on a parameter
-block that is already packed (``ops/branch_cuda.branch_pack`` writes it),
-as ``branch_update`` does; the dict entry points pack it themselves.
+``tron_alm_packed`` launches the branch, polar or ramp instance on a
+parameter block that is already packed (``ops/branch_cuda.branch_pack`` and
+``ops/mpacopf_cuda.ramp_pack`` write it), as ``branch_update`` and the
+multi-period x update do; the dict entry points pack it themselves.
 
 ``launches`` counts the kernels' launches by entry point
 (``tron_alm_branch_f64``, ``tron_alm_branch_f32`` and so on, so the f32
@@ -236,29 +237,45 @@ def tron_alm_branch(x0, xl, xu, params, lam0, mu0, *, gtol: float,
                    active0, **opts)
 
 
+def ramp_params_view(P: torch.Tensor) -> dict:
+    """The params dict of a packed (9, B) ramp block (``pack_ramp_params``'
+    rows), as views of it."""
+    from ..models.mpacopf.ramp import PARAM_KEYS
+    return {k: P[i] for i, k in enumerate(PARAM_KEYS)}
+
+
 def tron_alm_packed(inst: _Instance, x0, xl, xu, P, lam0, mu0, *,
-                    active0: torch.Tensor, gtol: float, frtol: float,
+                    active0: torch.Tensor | None, gtol: float, frtol: float,
                     ctol: float, mu_max: float, max_minor: int,
                     max_auglag: int,
                     step_cap: int | None = None) -> TronALMResult:
-    """Solve a branch (``BRANCH``) or polar (``POLAR``) batch whose
-    parameters are already packed: P (33, B) in ``pack_params``' rows, the
-    uint8 flags ``active0`` (B,), the rest as ``tron_alm_branch`` /
-    ``tron_alm_polar`` take them (``ops/branch_cuda.branch_pack`` writes
-    them all). On a CPU tensor the instance's plain version runs on views
-    of P."""
+    """Solve a branch (``BRANCH``), polar (``POLAR``) or ramp (``RAMP``)
+    batch whose parameters are already packed: P (33, B) in
+    ``pack_params``' rows, or (9, B) in ``pack_ramp_params``' for the ramp,
+    the uint8 flags ``active0`` (B,), the rest as ``tron_alm_branch`` /
+    ``tron_alm_polar`` / ``tron_alm_ramp`` take them
+    (``ops/branch_cuda.branch_pack`` and ``ops/mpacopf_cuda.ramp_pack``
+    write them all). The ramp batch takes ``active0`` all ones or None
+    (every lane runs). On a CPU tensor the instance's plain version runs on
+    views of P."""
     opts = dict(gtol=gtol, frtol=frtol, ctol=ctol, mu_max=mu_max,
                 max_minor=max_minor, max_auglag=max_auglag, step_cap=step_cap)
-    plain = {BRANCH: tron_alm_branch_plain, POLAR: tron_alm_polar_plain}
+    plain = {BRANCH: (tron_alm_branch_plain, params_view),
+             POLAR: (tron_alm_polar_plain, params_view),
+             RAMP: (tron_alm_ramp_plain, ramp_params_view)}
     if inst not in plain:
-        raise ValueError(f"tron_alm_packed: {inst.name} has no (33, B) "
-                         "branch parameter block")
+        raise ValueError(f"tron_alm_packed: {inst.name} takes no packed "
+                         "parameter block here")
+    if active0 is None and inst != RAMP:
+        raise ValueError(f"tron_alm_packed: {inst.name} needs active0")
     if x0.device.type == "cpu":
-        return plain[inst](x0, xl, xu, params_view(P), lam0, mu0,
-                           active0=active0 != 0, **opts)
+        solve, view = plain[inst]
+        return solve(x0, xl, xu, view(P), lam0, mu0,
+                     active0=None if active0 is None else active0 != 0,
+                     **opts)
     if x0.device.type != "cuda":
         raise ValueError(f"tron_alm_packed: unsupported device {x0.device}")
-    if active0.dtype != torch.uint8:
+    if active0 is not None and active0.dtype != torch.uint8:
         raise ValueError("tron_alm_packed: active0 must be uint8")
     return _launch(inst, x0, xl, xu, P, lam0, mu0, active0, **opts)
 

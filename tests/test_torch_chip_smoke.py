@@ -28,7 +28,8 @@ def test_rehearsal_on_cpu(case9_path, capsys):
                          qp_fused_iters=40)
     out = capsys.readouterr().out
     for phase in ("1", "1b", "1c", "2", "2b", "2c", "2d", "2f", "3", "3b",
-                  "3c", "3d", "3e", "3f", "3g", "3h", "4h", "4", "5", "6",
+                  "3c", "3d", "3e", "3f", "3g", "3h", "4h", "4", "5", "5h",
+                  "6",
                   "7", "8", "9a", "9b", "10a", "10b", "11"):
         assert f"phase {phase}:" in out
     # the hook kernels against their plain versions (trivially exact on the
@@ -49,6 +50,17 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     assert "in a random line order: B=32 (23 inactive)" in out
     assert "x 3 periods mixed line limits: B=27" in out
     assert "rank 1 of 2: B=5 (1 inactive)" in out
+    # the multi-period hook kernels against their plain versions on 7
+    # batches (fp64 with inner_iter a tensor and an int, fp32, case9 x 3,
+    # case9 x 1, two rank windows), each hook eager and in a graph
+    assert set(res["mp_hooks"]) == set(chip_smoke.MP_HOOK_KERNELS) | {
+        "errs", "cases", "hooks", "floor_ms"}
+    assert res["mp_hooks"]["cases"] == 7
+    assert set(res["mp_hooks"]["hooks"]) == {"x (ramp pack, unpack)", "xbar",
+                                             "z", "l", "lz", "residual"}
+    assert "x 3 rank 1 of 2: T=3, 3 gens, 5 lines: 12 kernels" in out
+    assert "case9 x 1: T=1, 3 gens, 9 lines: 11 kernels" in out
+    assert res["mp_hooks"]["mp_residual_final"]["max_abs_err"] == 0.0
     # mixed precision and line sorting at phase 4's configuration
     assert res["main_mixed"]["outer"] == res["main"]["outer"]
     assert ((res["main_sorted"]["outer"], res["main_sorted"]["cumul"])
@@ -117,7 +129,8 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     names = [k["name"] for k in res["kernels"]]
     assert names == ["tron_alm_branch", "tron_alm_ramp", "tron_alm_qpsub",
                      "bus_scatter", "tron_alm_polar", "graph_loop",
-                     *chip_smoke.HOOK_KERNELS, *chip_smoke.BRANCH_IO_KERNELS]
+                     *chip_smoke.HOOK_KERNELS, *chip_smoke.BRANCH_IO_KERNELS,
+                     *chip_smoke.MP_HOOK_KERNELS]
     for k in res["kernels"]:
         assert set(k) == {"name", "route", "source", "replaces", "launches",
                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -132,8 +145,8 @@ def test_rehearsal_on_cpu(case9_path, capsys):
             text = f.read().splitlines()[int(line) - 1]
         # a TPU kernel's function, the JAX call that runs the polar batch
         # as plain XLA, the JAX loop that the graph's loop replaces, or the
-        # JAX hook or branch update code whose XLA fusions a hook or branch
-        # I/O kernel stands for
+        # JAX hook or branch update code whose XLA fusions a hook, branch
+        # I/O or multi-period hook kernel stands for
         assert {"tron_alm_polar": "tron_batched(",
                 "graph_loop": "lax.while_loop("}.get(k["name"],
                                                     "def ") in text

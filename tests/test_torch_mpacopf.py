@@ -319,7 +319,15 @@ def test_one_period_solves_no_ramp_batch(monkeypatch):
     def no_ramp(*a, **k):
         raise AssertionError("ramp batch solved with T = 1")
 
+    packed = tron_cuda.tron_alm_packed
+
+    def packed_no_ramp(inst, *a, **k):
+        if inst == tron_cuda.RAMP:
+            no_ramp()
+        return packed(inst, *a, **k)
+
     monkeypatch.setattr(tron_cuda, "tron_alm_ramp", no_ramp)
+    monkeypatch.setattr(tron_cuda, "tron_alm_packed", packed_no_ramp)
     pd, qd = load_time_series(DEMAND)
     tm = TMP.build_model(opf_loaddata(CASE9, verbose=0), Parameters(verbose=0),
                          pd, qd, end_period=1)
