@@ -221,7 +221,15 @@ process per source, all at once) and runs, in order:
    the warm-up's one pass of the inner body, and 1 + 2 outer + cumul
    set-condition launches (1 + iterations one-level); inner it/s of both,
    the wall time of both entry-point calls (the fused one's with its
-   build), the graph's build ms and its pool MiB.
+   build), the graph's build ms and its pool MiB;
+11t. the port's tracer (``utils/tracing.py``) on phase 4's solve: with it
+   on and off the same solution bit for bit, the same info and the same
+   launches of every kernel; on, the spans' tree under one
+   ``entry.solve``, ``tron_steps`` (the step counter that ``branch_stats``
+   adds to) equal to the sums of the host loop's branch stats over its
+   inner iterations, ``device_s`` (CUDA events around the graph's launch)
+   inside ``time_overall``, and a kept driver's second solve rooted at
+   ``loop.solve`` with nothing built.
 
 Every fused solve on the card starts (the buffers' reset and the graph's
 launch) under ``torch.cuda.set_sync_debug_mode("error")``
@@ -239,6 +247,9 @@ warm-up before the capture counts as any launch (``ops/graph_loop.py``).
 9b runs the host loop. Every phase that solves with line subproblems
 checks one pack, one unpack and one stats launch (``csrc/branch_io.cu``)
 per branch or polar TRON launch.
+
+Phase 2f also checks, on every batch, that the stats kernel given a step
+counter adds the two sums to it and leaves its outputs as they were.
 
 ``--profile`` adds a breakdown of one iteration of the configurations of
 phases 4 to 8 (host time per hook, device time by kernel, idle share) and
@@ -874,8 +885,12 @@ def _branch_io_held(label: str, sol, gd, par, it, use_linelimit: bool,
         return [r[0], r[1].lam1, r[1].lam2, r[1].mu, r[2], r[3]]
 
     ugot = flat(branch_cuda.branch_unpack(*uargs))
-    uagain = flat(branch_cuda.branch_unpack(*uargs))
-    uref = flat(branch.branch_unpack_plain(*uargs))
+    # the second run with a TRON step counter: the same outputs, and the
+    # counter holds the two sums of both steps' stats (the plain version's)
+    steps = torch.full((), 7, dtype=torch.int64, device=sol.u.line.device)
+    steps_ref = steps.clone()
+    uagain = flat(branch_cuda.branch_unpack(*uargs, steps))
+    uref = flat(branch.branch_unpack_plain(*uargs, steps_ref))
     _sync(dev)
     pairs = {"pack": (got, again, ref), "unpack": (ugot, uagain, uref)}
     for what, (a, b, r) in pairs.items():
@@ -884,11 +899,16 @@ def _branch_io_held(label: str, sol, gd, par, it, use_linelimit: bool,
         rerun = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
         _check(same and rerun, f"phase 2f: {label}: {what} bit-identical to "
                                f"the plain version {same}, to a rerun {rerun}")
+    want = 7 + int(uref[-1][0]) + int(uref[-1][1])
+    _check(int(steps) == int(steps_ref) == want,
+           f"phase 2f: {label}: TRON step counter {int(steps)}, plain "
+           f"{int(steps_ref)}, the stats' sums {want}")
     inactive = int((act == 0).sum())
     B = sol.u.line.shape[0]
     print(f"phase 2f: {label}: B={B} ({inactive} inactive), pack, unpack "
           f"and stats bit-identical to their plain versions and to a rerun; "
-          f"stats {[float(x) for x in ugot[-1]]}")
+          f"stats {[float(x) for x in ugot[-1]]}; step counter +"
+          f"{want - 7}")
     floats = list(zip([*got[:-1], *ugot[:4]], [*ref[:-1], *uref[:4]]))
     return dict(err=_max_abs(floats), stats_err=_max_abs([(ugot[5],
                                                            uref[5])]),
@@ -3129,6 +3149,125 @@ def _fused_pair(dev, label: str, call, periods, on_card: bool,
                 outer=last.outer, cumul=last.cumul, obj=last.objval)
 
 
+def phase11t_tracing(dev, big, on_card: bool) -> dict:
+    """The port's tracer (``utils/tracing.py``) on phase 4's solve: off and
+    on give bit-identical solutions, the same info and the same launches
+    (a loop built with tracing on has the same nodes); on, the spans form
+    the entry point's tree, ``tron_steps`` equals the host loop's branch
+    stats (the sums of ALM and minor iterations of every inner iteration,
+    read back as integers) and, on the card, ``device_s`` (the graph's
+    CUDA events) lies inside ``time_overall``; a second solve of a kept
+    driver is a tree rooted at ``loop.solve`` that builds nothing."""
+    import exaadmm_tpu_torch as E
+    from exaadmm_tpu_torch.algorithms.carry import leaves
+    from exaadmm_tpu_torch.interface import solve_acopf as iface
+    from exaadmm_tpu_torch.models.acopf import model as M
+    from exaadmm_tpu_torch.ops import branch_cuda
+    from exaadmm_tpu_torch.utils import tracing
+    from exaadmm_tpu_torch.utils.environment import (IterationInformation,
+                                                     Parameters)
+
+    def call():
+        return E.solve_acopf(big.case, data=big, device=dev, **MAIN_KW)
+
+    _sync(dev)
+    _zero_launches()
+    off = call()
+    _sync(dev)
+    l_off = _launches()
+    _zero_launches()
+    tracing.take()
+    tracing.enable()
+    try:
+        on = call()
+        _sync(dev)
+    finally:
+        tracing.disable()
+    spans = tracing.take()
+    l_on = _launches()
+    for k in _INFO_FIELDS:
+        _check(getattr(on.info, k) == getattr(off.info, k),
+               f"phase 11t: {k} on {getattr(on.info, k)!r} off "
+               f"{getattr(off.info, k)!r}")
+    pairs = list(zip(leaves(on.solution), leaves(off.solution), strict=True))
+    _check(all(bool(torch.equal(a, b)) for a, b in pairs),
+           "phase 11t: the solution differs with tracing on")
+    _check(l_on == l_off, f"phase 11t: launches on {l_on} off {l_off}")
+    roots = [x for x in spans if x.parent is None]
+    _check([x.name for x in roots] == ["entry.solve"]
+           and {x.root for x in spans} == {roots[0].id},
+           f"phase 11t: roots {[x.name for x in roots]}")
+    (solve,) = [x for x in spans if x.name == "loop.solve"]
+    kids = [x.name for x in spans if x.parent == solve.id]
+    _check(kids == ["loop.build", "loop.inputs", "loop.reset", "loop.launch",
+                    "loop.clone", "loop.read_back"],
+           f"phase 11t: loop.solve's children {kids}")
+    a = solve.attrs
+    info = on.info
+    _check((a["cumul"], a["outer"], a["status"], a["built"])
+           == (info.cumul, info.outer, info.status, True),
+           f"phase 11t: the solve's record {a}")
+    if on_card:
+        _check(0.0 < a["device_s"] <= info.time_overall,
+               f"phase 11t: device_s {a['device_s']!r} against "
+               f"time_overall {info.time_overall!r}")
+    # the host loop's branch stats, read back in every inner iteration
+    sums = []
+    unpack = branch_cuda.branch_unpack
+
+    def spy(*args, **kwargs):
+        out = unpack(*args, **kwargs)
+        x, y = out[3][0].item(), out[3][1].item()
+        _check(x == int(x) and y == int(y), f"phase 11t: sums {x}, {y}")
+        sums.append(int(x) + int(y))
+        return out
+    branch_cuda.branch_unpack = spy
+    try:
+        with _host_loop():
+            host = call()
+    finally:
+        branch_cuda.branch_unpack = unpack
+    _check(host.info.cumul == info.cumul == len(sums)
+           and a["tron_steps"] == sum(sums),
+           f"phase 11t: tron_steps {a['tron_steps']} against the host "
+           f"loop's {sum(sums)} over {len(sums)} iterations")
+    # a kept driver: its second solve builds nothing
+    par = Parameters(**{k: MAIN_KW[k] for k in (
+        "outer_iterlim", "inner_iterlim", "outer_eps", "verbose")})
+    tracing.enable()
+    try:
+        model = M.build_model(big, par, device=dev)
+        drive = iface.two_level_driver(model)
+        sol = M.init_solution(model, MAIN_KW["rho_pq"], MAIN_KW["rho_va"])
+        drive(model, sol, IterationInformation())
+        tracing.take()
+        _, again = drive(model, sol, IterationInformation())
+        _sync(dev)
+    finally:
+        tracing.disable()
+    spans2 = tracing.take()
+    roots2 = [x for x in spans2 if x.parent is None]
+    _check([x.name for x in roots2] == ["loop.solve"]
+           and roots2[0].attrs["built"] is False
+           and "loop.build" not in {x.name for x in spans2}
+           and roots2[0].attrs["tron_steps"] > 0,
+           f"phase 11t: the kept driver's spans "
+           f"{[(x.name, x.parent) for x in spans2]}")
+    ms = {x.name: x.seconds * 1e3 for x in spans if x.parent == solve.id}
+    dev_s = a.get("device_s")
+    print(f"phase 11t: tracing on == off (solution bit-identical, info "
+          f"equal, launches equal); {len(spans)} spans; tron_steps "
+          f"{a['tron_steps']} == the host loop's stats over {len(sums)} "
+          f"iterations ({a['tron_steps'] / (a['nline'] * info.cumul):.3f} "
+          f"a lane an iteration); time_overall {info.time_overall * 1e3:.3f}"
+          f" ms, device_s "
+          f"{'none' if dev_s is None else f'{dev_s * 1e3:.3f} ms'}; "
+          f"loop spans ms {ms}; kept driver: root loop.solve, built False")
+    return dict(spans=len(spans), tron_steps=a["tron_steps"],
+                device_s=dev_s, time_overall=info.time_overall,
+                cumul=info.cumul)
+
+
 def _loop_vs_plain(dev, on_card: bool, trips: int = 2000) -> dict:
     """The set-condition kernel against its plain version: a loop whose
     body adds one to a counter and sets the flag to (counter < trips), run
@@ -3337,25 +3476,32 @@ def phase11_fused(dev, big, mp_data, mp_loads, T: int, on_card: bool,
 
 
 def profile_fused(dev, label: str, call) -> dict:
-    """Where a fused solve's time goes: ``call()`` under torch.profiler;
-    from the graph's launch (its ``graph_loop.launch`` mark) to the last
-    device activity, the device's busy time and idle share, per inner
-    iteration."""
+    """Where a fused solve's time goes: ``call()`` under torch.profiler,
+    with the port's tracer on; from the graph's launch (its ``loop.launch``
+    span) to the last device activity, the device's busy time and idle
+    share, per inner iteration."""
+    from exaadmm_tpu_torch.utils import tracing
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        res = call()
-        _sync(dev)
+    tracing.enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            res = call()
+            _sync(dev)
+    finally:
+        tracing.disable()
+        tracing.take()
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
-    # the host's mark (the profiler also puts one on the device's timeline)
-    marks = [e for e in events if e.name == "graph_loop.launch"
+    # the host's range (the profiler also puts the spans' ranges on the
+    # device's timeline)
+    marks = [e for e in events if e.name == "loop.launch"
              and getattr(e, "device_type", None) != cuda]
     _check(len(marks) == 1, f"profile {label}: {len(marks)} launches")
     t0 = marks[0].time_range.start
     dev_ev = [e for e in events
               if getattr(e, "device_type", None) == cuda
-              and e.name != "graph_loop.launch"
+              and not e.name.startswith(("loop.", "entry."))
               and e.time_range.start >= t0]
     busy_us = sum(e.time_range.elapsed_us() for e in dev_ev)
     span_us = max(e.time_range.end for e in dev_ev) - t0
@@ -3533,6 +3679,7 @@ def run(device, big_data, mp_data, mp_loads, T: int,
     results["fused"] = phase11_fused(dev, big_data, mp_data, mp_loads, T,
                                      on_card, case9_fused_outer,
                                      qp_fused_iters)
+    results["tracing"] = phase11t_tracing(dev, big_data, on_card)
     results["main_mixed"] = results["mixed"]["main"]
     results["main_sorted"] = results["sort"]["sorted"]
     main_runs = ("main", "main_mp", "main_qp", "main_mpec", "main_polar",

@@ -37,6 +37,16 @@ profiler traces; ``parallel/`` splits the lines across the ranks of a
 ``solve_acopf``, ``solve_qpsub`` and ``solve_acopf_mpec``, ``--mesh N`` on
 the command line); ``AdmmEnv`` records what a solve was asked to do.
 
+Tracing (``utils/tracing.py``) is off by default and costs one flag test a
+site while off. ``tracing.enable()`` turns it on; ``tracing.take()`` then
+returns the spans recorded since the last call, on ``time.time_ns()``'s
+clock, which ``torch.profiler`` shares: each entry point, model build and
+initial point, and each fused solve with its phases (build, input copies,
+reset, launch, clone, read-back), the solve carrying its counts,
+``time_overall``, the device seconds of its loop graph (CUDA events) and
+the line batch's TRON steps. Under a recording profiler the spans also
+show as profiler ranges.
+
 This package imports neither jax nor ``exaadmm_tpu``.
 """
 

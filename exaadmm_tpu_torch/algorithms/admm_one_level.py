@@ -36,6 +36,7 @@ import torch
 
 from ..ops import graph_loop
 from ..parallel import sharding
+from ..utils import tracing
 from ..utils.environment import IterationInformation
 from .carry import Carry
 
@@ -170,6 +171,10 @@ class OneLevelSolver:
         self.source = model
 
     def __call__(self, sol, info: IterationInformation, model=None):
+        with tracing.span("loop.solve") as span:
+            return self._solve(sol, info, model, span)
+
+    def _solve(self, sol, info: IterationInformation, model, span):
         if model is not None and model is not self.source:
             if self.carry is not None:
                 raise ValueError("a fused solver runs the model of its first "
@@ -183,14 +188,18 @@ class OneLevelSolver:
         # the solve's loop-invariant QP constants, computed once
         self.model = src.solve_prep(sol, self.model)
         built = self.carry is None
+        if span is not None:
+            span.attrs["built"] = built
         if built:
             t0 = time.perf_counter()
-            self._build(sol, dual_tol, outer_tol)
+            with tracing.span("loop.build"):
+                self._build(sol, dual_tol, outer_tol)
             info.time_build = time.perf_counter() - t0
         c, loop, model = self.carry, self.loop, self.model
         with graph_loop.no_syncs(c.state[0].device):
-            reset_one_level(c, sol, dual_tol)
-            set_one_level_flag(c, par.outer_iterlim, outer_tol)
+            with tracing.span("loop.reset"):
+                reset_one_level(c, sol, dual_tol)
+                set_one_level_flag(c, par.outer_iterlim, outer_tol)
             t0 = time.perf_counter()
             if loop is not None:
                 loop.launch()
@@ -199,7 +208,8 @@ class OneLevelSolver:
                     (lambda: one_level_body(model, c, outer_tol),),
                     (c.v["flag"],))
             # tensors of its own: the next solve overwrites the buffers
-            sol = c.clone().sol
+            with tracing.span("loop.clone"):
+                sol = c.clone().sol
         out = c.read_back(("it",) + _FLOATS, loop)
         info.time_overall = time.perf_counter() - t0
         if loop is not None:
@@ -210,6 +220,9 @@ class OneLevelSolver:
             setattr(info, k, out[k])
         converged = info.mismatch <= outer_tol and info.dualres <= dual_tol
         info.status = "Solved" if converged else "IterationLimit"
+        if span is not None:
+            span.attrs.update(tracing.solve_attrs(
+                model.grid, sol.u.gen.dtype, info, loop))
         return sol, info
 
     def _build(self, sol, dual_tol: float, outer_tol: float):

@@ -37,6 +37,13 @@ stepping): it synchronizes the device after every hook, so the times are the
 hooks' and the loop is slower. With it off (the default) the loop makes no
 extra call.
 
+With tracing on (``utils/tracing.py``) a fused solve is a ``loop.solve``
+span over its phases, which carries the solve's record; a solver built
+while tracing is on also counts the line batch's TRON steps in its carry
+(``tron_steps``: the branch stats kernel adds to it in every inner
+iteration), read back with the other scalars. A graph captured with
+tracing off or on has the same nodes.
+
 With ``Parameters.sort_lines`` and a model that ``supports_line_sort``,
 each outer round starts by sorting the line batch by the lanes' effort in
 the last inner iteration (``lane_steps``, stable ascending, as the JAX
@@ -72,6 +79,7 @@ import torch
 
 from ..ops import graph_loop
 from ..parallel import sharding
+from ..utils import tracing
 from ..utils.environment import (IterationInformation, Solution,
                                  permute_solution_lines)
 from ..utils.grid_data import LINE_FIELDS
@@ -330,6 +338,8 @@ class FusedSolver:
             v[k].fill_(float("inf") if k in _START_INF else 0.0)
         v["beta"].fill_(min(self.par.initial_beta, self.beta_cap))
         v["inner_flag"].zero_()
+        if "tron_steps" in v:
+            v["tron_steps"].zero_()
         if self.sorting:
             v["line_ids"].copy_(self.ids0)
             v["lane_steps"].zero_()
@@ -366,6 +376,9 @@ class FusedSolver:
             order = dict(line_ids=self.ids0,
                          lane_steps=torch.zeros(grid.nline_padded,
                                                 dtype=torch.int32, device=dev))
+        if tracing.enabled():
+            # the line batch's TRON steps (``tracing.counting_steps``)
+            order["tron_steps"] = count
         self.carry = c = Carry(sol, dict(
             {k: zero for k in _FLOATS}, **{k: count for k in _COUNTERS},
             inner_flag=flag, outer_flag=flag, **order))
@@ -373,23 +386,38 @@ class FusedSolver:
             return
         self._reset(c, sol, info)
         w = c.clone()
-        self.loop = graph_loop.GraphLoop(
-            (lambda: self._pre(c), lambda: self._inner(c),
-             lambda: self._tail(c)),
-            (c.v["inner_flag"], c.v["outer_flag"]),
-            warmup=lambda: (self._pre(w), self._inner(w), self._tail(w)))
+        # the capture bakes the counter's address into the stats kernel's
+        # node (the warm-up's adds are zeroed by every solve's reset)
+        with tracing.counting_steps(c.v.get("tron_steps")):
+            self.loop = graph_loop.GraphLoop(
+                self._bodies(c), (c.v["inner_flag"], c.v["outer_flag"]),
+                warmup=lambda: (self._pre(w), self._inner(w),
+                                self._tail(w)))
+
+    def _bodies(self, c: Carry) -> tuple:
+        return (lambda: self._pre(c), lambda: self._inner(c),
+                lambda: self._tail(c))
 
     def __call__(self, sol, info: IterationInformation, Pd=None, Qd=None,
                  pgmin_curr=None, pgmax_curr=None, model=None):
+        with tracing.span("loop.solve") as span:
+            return self._solve(sol, info, Pd, Qd, pgmin_curr, pgmax_curr,
+                               model, span)
+
+    def _solve(self, sol, info, Pd, Qd, pgmin_curr, pgmax_curr, model,
+               span):
         if model is not None and model is not self.source:
             if self.carry is not None:
                 raise ValueError("a fused solver runs the model of its first "
                                  "call; this call gave another")
             self._bind(model)
         built = self.carry is None
+        if span is not None:
+            span.attrs["built"] = built
         if built:
             t0 = time.perf_counter()
-            self._build(sol, info, Pd, Qd, pgmin_curr, pgmax_curr)
+            with tracing.span("loop.build"):
+                self._build(sol, info, Pd, Qd, pgmin_curr, pgmax_curr)
             info.time_build = time.perf_counter() - t0
         given = {k: t for k, t in dict(
             Pd=Pd, Qd=Qd, pgmin_curr=pgmin_curr,
@@ -398,26 +426,31 @@ class FusedSolver:
             raise ValueError(f"a fused solver built with "
                              f"{sorted(self.inputs)} was called with "
                              f"{sorted(given)}")
-        for k, buf in self.inputs.items():
-            buf.copy_(given[k])
+        with tracing.span("loop.inputs"):
+            for k, buf in self.inputs.items():
+                buf.copy_(given[k])
         c, loop = self.carry, self.loop
         with graph_loop.no_syncs(c.state[0].device):
-            self._reset(c, sol, info)
+            with tracing.span("loop.reset"):
+                self._reset(c, sol, info)
             t0 = time.perf_counter()
             if loop is not None:
                 loop.launch()
             else:
-                graph_loop.run_on_host(
-                    (lambda: self._pre(c), lambda: self._inner(c),
-                     lambda: self._tail(c)),
-                    (c.v["inner_flag"], c.v["outer_flag"]))
+                with tracing.counting_steps(c.v.get("tron_steps")):
+                    graph_loop.run_on_host(
+                        self._bodies(c),
+                        (c.v["inner_flag"], c.v["outer_flag"]))
             # tensors of its own (the next solve overwrites the buffers),
             # with the lines back in canonical order
-            sol = c.clone().sol
-            if self.sorting:
-                sol = permute_solution_lines(sol,
-                                             torch.argsort(c.v["line_ids"]))
-        out = c.read_back(_COUNTERS + _FLOATS, loop)
+            with tracing.span("loop.clone"):
+                sol = c.clone().sol
+                if self.sorting:
+                    sol = permute_solution_lines(
+                        sol, torch.argsort(c.v["line_ids"]))
+        keys = _COUNTERS + _FLOATS + (
+            ("tron_steps",) if "tron_steps" in c.v else ())
+        out = c.read_back(keys, loop)
         info.time_overall = time.perf_counter() - t0
         if loop is not None:
             info.graph_pool_bytes = loop.pool_bytes
@@ -431,6 +464,11 @@ class FusedSolver:
         info.status = ("Solved" if info.mismatch <= self.outer_tol
                        else "IterationLimit")
         self.par.beta = out["beta"]
+        if span is not None:
+            span.attrs.update(tracing.solve_attrs(
+                self.model.grid, self.dtype, info, loop))
+            if "tron_steps" in out:
+                span.attrs["tron_steps"] = int(out["tron_steps"])
         return sol, info
 
 

@@ -17,6 +17,8 @@ import dataclasses
 
 import torch
 
+from ..utils import tracing
+
 
 def leaves(rec) -> list:
     """The tensors of a record, depth first in field order."""
@@ -86,11 +88,12 @@ class Carry:
             x if x is y else torch.where(cond, x, y)
             for x, y in zip(leaves(a), leaves(b))])))
 
+    @tracing.spanned("loop.read_back")
     def read_back(self, keys, loop=None) -> dict:
         """The scalars ``keys`` as Python numbers, in one stacked copy from
         the device that also holds the launch counters of ``loop``'s last
         run (a ``graph_loop.GraphLoop``, or None), which go to the host's
-        counts."""
+        counts. It is the ``loop.read_back`` span when tracing is on."""
         vals = torch.stack([self.v[k].to(torch.float64) for k in keys])
         if loop is not None:
             vals = torch.cat([vals, loop.counts.values.to(torch.float64)])

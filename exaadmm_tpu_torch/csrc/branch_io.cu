@@ -34,7 +34,9 @@
 //
 // The stats: the unpack writes each block's sums of alm_iters * mask and
 // minor_iters * mask and its maximum of where(active, cviol, 0); one block
-// adds the partials and takes the maximum (no atomics). The sums are of
+// adds the partials and takes the maximum (no atomics), and, given a step
+// counter, adds the two sums to it (the solve's TRON steps, an int64 count
+// read back with the loop's scalars when tracing is on). The sums are of
 // integer values well inside the type's exact range, so any order gives
 // torch.sum's bits; the maximum does not depend on order. The averages
 // multiply by the reciprocal of nline that the wrapper forms on the host,
@@ -304,10 +306,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // one block: the partials' two sums and maximum into out = [sum of
 // alm_iters * mask, sum of minor_iters * mask, max cviol, the two sums
-// times 1 / nline]
+// times 1 / nline]; with a step counter (a fused loop built while tracing
+// was on), the two sums are added to it as integers too
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
-    stats_kernel(const S* part, int nblocks, double inv_nline, S* out) {
+    stats_kernel(const S* part, int nblocks, double inv_nline, S* out,
+                 long long* steps) {
   S a = S(0), b = S(0), c = -INFINITY;
   for (int k = threadIdx.x; k < nblocks; k += kThreads) {
     a = a + part[k];
@@ -344,6 +348,10 @@ __global__ void __launch_bounds__(kThreads)
     out[2] = c;
     out[3] = a * inv;
     out[4] = b * inv;
+    // the sums hold integer values, so the conversions are exact; the
+    // stream orders the adds of successive launches
+    if (steps != nullptr)
+      *steps += static_cast<long long>(a) + static_cast<long long>(b);
   }
 }
 
@@ -409,10 +417,11 @@ int launch_unpack(const void* x, const void* lam, const void* mu,
 
 template <typename S>
 int launch_stats(const void* part, int nblocks, double inv_nline, void* out,
-                 void* stream) {
+                 void* steps, void* stream) {
   if (nblocks > 0)
     stats_kernel<S><<<1, kThreads, 0, st(stream)>>>(
-        cp<S>(part), nblocks, inv_nline, static_cast<S*>(out));
+        cp<S>(part), nblocks, inv_nline, static_cast<S*>(out),
+        static_cast<long long*>(steps));
   return last_error();
 }
 
@@ -466,14 +475,15 @@ extern "C" {
 BRANCH_IO_ENTRIES(linelimit, true)
 BRANCH_IO_ENTRIES(polar, false)
 
+// steps: an int64 counter that the two sums are added to, or null
 int branch_stats_f64(const void* part, int nblocks, double inv_nline,
-                     void* out, void* stream) {
-  return launch_stats<double>(part, nblocks, inv_nline, out, stream);
+                     void* out, void* steps, void* stream) {
+  return launch_stats<double>(part, nblocks, inv_nline, out, steps, stream);
 }
 
 int branch_stats_f32(const void* part, int nblocks, double inv_nline,
-                     void* out, void* stream) {
-  return launch_stats<float>(part, nblocks, inv_nline, out, stream);
+                     void* out, void* steps, void* stream) {
+  return launch_stats<float>(part, nblocks, inv_nline, out, steps, stream);
 }
 
 const char* error_string(int err) {

@@ -36,6 +36,7 @@ from ..algorithms.admm_two_level import two_level_driver
 from ..models.acopf import model as M
 from ..models.pf.projection import pf_projection
 from ..parallel.sharding import default_pad, run_sharded
+from ..utils import tracing
 from ..utils.environment import AdmmEnv, IterationInformation, Parameters, Solution
 from ..utils.opfdata import OPFData, opf_loaddata
 
@@ -49,6 +50,7 @@ class SolveResult:
     env: AdmmEnv | None = None
 
 
+@tracing.spanned("entry.solve", entry="solve_acopf")
 def solve_acopf(
     case: str,
     *,

@@ -18,6 +18,7 @@ import torch
 
 from ..algorithms.admm_two_level import two_level_driver
 from ..models.acopf import model as M
+from ..utils import tracing
 from ..utils.environment import IterationInformation, Parameters
 from ..utils.opfdata import OPFData, load_time_series, opf_loaddata
 from .solve_acopf import SolveResult
@@ -30,6 +31,7 @@ def update_real_power_current_bounds(pgmin, pgmax, ramp_rate, pg_curr):
             torch.minimum(pgmax, pg_curr + ramp_rate))
 
 
+@tracing.spanned("entry.solve", entry="solve_acopf_rolling")
 def solve_acopf_rolling(
     case: str,
     load_prefix: str | None = None,

@@ -28,6 +28,7 @@ from ..algorithms.admm_two_level import two_level_driver
 from ..models.acopf import model as acopf_M
 from ..models.mpacopf import model as mp_M
 from ..models.pf.projection import pf_projection
+from ..utils import tracing
 from ..utils.environment import (AdmmEnv, Blocks, IterationInformation,
                                  Parameters, SolutionMpacopf)
 from ..utils.opfdata import OPFData, load_time_series, opf_loaddata
@@ -43,6 +44,7 @@ class MpacopfResult:
     env: AdmmEnv | None = None
 
 
+@tracing.spanned("entry.solve", entry="solve_mpacopf")
 def solve_mpacopf(
     case: str,
     load_prefix: str | None = None,

@@ -23,6 +23,7 @@ import torch
 from ..algorithms.admm_two_level import two_level_driver
 from ..models.mpec import model as MM
 from ..parallel.sharding import default_pad, run_sharded
+from ..utils import tracing
 from ..utils.environment import AdmmEnv, IterationInformation, Parameters
 from ..utils.grid_data import build_csr, build_grid_data
 from ..utils.opfdata import OPFData, opf_loaddata
@@ -69,6 +70,7 @@ def make_storage(data: OPFData, storage_ratio: float,
     )
 
 
+@tracing.spanned("entry.build_model")
 def build_model(data: OPFData, par: Parameters, *, storage_ratio: float = 0.0,
                 storage_charge_max: float = 1.0, droop: float = 0.04,
                 use_linelimit: bool = True, tight_factor: float = 0.99,
@@ -96,6 +98,7 @@ def build_model(data: OPFData, par: Parameters, *, storage_ratio: float = 0.0,
         use_linelimit=use_linelimit)
 
 
+@tracing.spanned("entry.solve", entry="solve_acopf_mpec")
 def solve_acopf_mpec(
     case: str,
     *,

@@ -32,6 +32,7 @@ from ..algorithms.admm_one_level import one_level_driver
 from ..models.pf.projection import pf_projection
 from ..models.qpsub import model as Q
 from ..parallel.sharding import default_pad, run_sharded
+from ..utils import tracing
 from ..utils.environment import IterationInformation, Parameters, SolutionQpsub
 from ..utils.opfdata import OPFData, opf_loaddata
 
@@ -45,6 +46,7 @@ class QpsubResult:
     sqp_out: dict  # dpg/dqg/dline_var/dline_fl/dw/dtheta, dual_infeas, lambda
 
 
+@tracing.spanned("entry.solve", entry="solve_qpsub")
 def solve_qpsub(
     case: str,
     Hs, LH_1h, RH_1h, LH_1i, RH_1i, LH_1j, RH_1j, LH_1k, RH_1k,

@@ -31,6 +31,7 @@ import torch
 from ...ops import branch_cuda, tron_cuda
 from ...ops.tron import TronALMResult
 from ...parallel.sharding import all_reduce_max, all_reduce_sum
+from ...utils import tracing
 from ...utils.environment import (BranchALMState, Parameters, Solution,
                                  on_first_iteration)
 from ...utils.grid_data import GridData
@@ -445,13 +446,14 @@ def branch_stats_plain(res: TronALMResult, gd: GridData, active0):
 
 
 def branch_unpack_plain(res: TronALMResult, sol: Solution, gd: GridData,
-                        active0, use_linelimit: bool, out_dtype):
+                        active0, use_linelimit: bool, out_dtype, steps=None):
     """(u_new (B, 8), the new ALM state, lane_steps (B,) int32, the stats
     of ``branch_stats_plain``) from the batch's result: x, the multipliers,
     the penalties and the violations cast up to ``out_dtype`` first
     (mixed precision), the four flows at x where the lane is active, else
-    its old row; without line limits the ALM state as it was. The plain
-    version of ``ops/branch_cuda.branch_unpack``."""
+    its old row; without line limits the ALM state as it was. ``steps``, a
+    0-d int64 tensor or None, gets the stats' two sums added to it. The
+    plain version of ``ops/branch_cuda.branch_unpack``."""
     if res.x.dtype != out_dtype:
         res = cast_up(res, out_dtype)
     new_alm = (BranchALMState(lam1=res.lam[0], lam2=res.lam[1], mu=res.mu)
@@ -465,6 +467,9 @@ def branch_unpack_plain(res: TronALMResult, sol: Solution, gd: GridData,
     active = active0 != 0
     u_new = torch.where(active[:, None], u_new, sol.u.line)
     stats = branch_stats_plain(res, gd, active)
+    if steps is not None:
+        # integer values: the conversions are exact
+        steps.add_(stats[0].to(torch.int64) + stats[1].to(torch.int64))
     # each lane's trust-region steps and ALM rounds (0 on padded lanes):
     # the difficulty that Parameters.sort_lines orders the lanes by
     lane_steps = ((res.minor_iters + res.alm_iters)
@@ -488,7 +493,11 @@ def branch_update(sol: Solution, gd: GridData, par: Parameters,
     fp32 tolerances (the kernel's f32 instance); its inputs are cast down
     and x, the multipliers, the penalties and the violations cast back up
     before the flows, so the returned state stays fp64
-    (``cast_down``/``cast_up``, JAX ``branch_update``'s ``_down``/``_up``)."""
+    (``cast_down``/``cast_up``, JAX ``branch_update``'s ``_down``/``_up``).
+
+    While a fused loop that counts TRON steps runs or captures its bodies
+    (``tracing.counting_steps``), the unpack adds the batch's steps to its
+    counter."""
     out_dtype = sol.u.line.dtype
     mixed = par.mixed_precision and out_dtype == torch.float64
     solve_dtype = torch.float32 if mixed else out_dtype
@@ -500,7 +509,7 @@ def branch_update(sol: Solution, gd: GridData, par: Parameters,
         sol, gd, par, inner_iter, use_linelimit, solve_dtype)
     res = tron_cuda.tron_alm_packed(inst, *batch, active0=active0, **opts)
     u_new, new_alm, lane_steps, tot = branch_cuda.branch_unpack(
-        res, sol, gd, active0, use_linelimit, out_dtype)
+        res, sol, gd, active0, use_linelimit, out_dtype, tracing.steps)
     if gd.mesh is None:
         avg, max_cv = tot[3:], tot[2]
     else:

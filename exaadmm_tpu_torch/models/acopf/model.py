@@ -13,6 +13,7 @@ import copy
 import torch
 
 from ...ops import acopf_cuda
+from ...utils import tracing
 from ...utils.environment import Blocks, BranchALMState, Parameters, Solution
 from ...utils.grid_data import GridData, build_grid_data, permute_lines
 from ...utils.opfdata import OPFData
@@ -97,6 +98,7 @@ class ModelAcopf:
         return sol.replace(rp=rp, rd=rd), scalars
 
 
+@tracing.spanned("entry.build_model")
 def build_model(
     data: OPFData,
     par: Parameters,
@@ -112,6 +114,7 @@ def build_model(
     return ModelAcopf(grid=gd, par=par, use_linelimit=use_linelimit)
 
 
+@tracing.spanned("entry.init_solution")
 def init_solution(model: ModelAcopf, rho_pq: float, rho_va: float) -> Solution:
     """Flat start (acopf_init_solution_cpu.jl:8-58).
 

@@ -39,6 +39,7 @@ import torch
 
 from ...ops import mpacopf_cuda, tron_cuda
 from ...parallel.sharding import all_reduce_sum
+from ...utils import tracing
 from ...utils.environment import (SOLUTION_BLOCKS, Blocks, BranchALMState,
                                   Parameters, RampState, Solution,
                                   SolutionMpacopf)
@@ -292,6 +293,7 @@ def residual_update_plain(sol: SolutionMpacopf, model: ModelMpacopf):
     return rp_b, rd_b, scalars
 
 
+@tracing.spanned("entry.build_model")
 def build_model(data: OPFData, par: Parameters, pd_mat, qd_mat, *,
                 start_period: int = 1, end_period: int = 1,
                 use_linelimit: bool = True, tight_factor: float = 1.0,
@@ -329,6 +331,7 @@ def _stack(sols) -> Solution:
                for k in ("lam1", "lam2", "mu")}))
 
 
+@tracing.spanned("entry.init_solution")
 def init_solution(model: ModelMpacopf, rho_pq: float, rho_va: float,
                   warm=None) -> SolutionMpacopf:
     """Flat start in every period plus the ramp state

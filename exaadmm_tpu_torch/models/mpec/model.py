@@ -36,6 +36,7 @@ import torch
 
 from ...ops import bus_cuda
 from ...parallel.sharding import all_reduce_sum
+from ...utils import tracing
 from ...utils.environment import (BranchALMState, Blocks, Parameters,
                                   Solution, _TensorRecord)
 from ...utils.grid_data import GridData
@@ -403,6 +404,7 @@ class ModelMpec:
         return sol.replace(rp=rp, rd=rd), scalars
 
 
+@tracing.spanned("entry.init_solution")
 def init_solution(model: ModelMpec, rho_pq: float, rho_va: float
                   ) -> SolutionMpec:
     """Flat start (mpec_init_solution_cpu.jl): the ACOPF start, vg at its

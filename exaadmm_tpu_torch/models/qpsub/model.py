@@ -38,6 +38,7 @@ import torch
 from ...ops import tron_cuda
 from ...parallel.sharding import all_reduce_sum
 from ...ops.tron import _dot, _hmatvec, _rowsum
+from ...utils import tracing
 from ...utils.environment import (Blocks, Parameters, Solution, SolutionQpsub,
                                   blocks_map, on_first_iteration)
 from ...utils.grid_data import GridData, build_grid_data
@@ -412,6 +413,7 @@ def qpsub_inputs(model: ModelQpsub, sol: SolutionQpsub, inner_iter):
     return x0, xl, xu, params, lam0, mu0, gd.line_mask > 0.5
 
 
+@tracing.spanned("entry.build_model")
 def build_model(data_or_grid, par: Parameters, qp_inputs: dict, *,
                 use_linelimit: bool = True, tight_factor: float = 1.0,
                 pad_lines_to: int = 1, dtype=torch.float64,
@@ -456,6 +458,7 @@ def build_model(data_or_grid, par: Parameters, qp_inputs: dict, *,
     return ModelQpsub(grid=gd, par=par, qp=qp, use_linelimit=use_linelimit)
 
 
+@tracing.spanned("entry.init_solution")
 def init_solution(model: ModelQpsub, rho_pq: float, rho_va: float
                   ) -> SolutionQpsub:
     """qpsub flat start (qpsub_init_solution_cpu.jl:8-67): v gens at delta

@@ -12,7 +12,8 @@ fusions XLA compiles from the JAX ``branch_update`` around its solver call
 - ``branch_unpack``: one thread per lane writes the new line rows, the
   widened ALM state (mixed precision), the lane steps and its block's
   stats partials (``branch_unpack``), then one block the (5,) stats
-  (``branch_stats``).
+  (``branch_stats``), which also adds the batch's TRON steps to a fused
+  loop's step counter when it has one (``utils/tracing.py``).
 
 Two instances, with line limits (n = 6, ncon = 2) and without (the polar
 batch, n = 4, ncon = 0), in three type pairs: fp64, fp32, and mixed (an
@@ -69,7 +70,8 @@ _SIGS = {
     #  lam_up, mu_up, lane_steps, part, B, nblocks, stream)
     "branch_unpack": [_P] * 22 + [_I, _I, _P],
 }
-_STATS_SIG = [_P, _I, _D, _P, _P]   # (part, nblocks, 1/nline, out, stream)
+#: (part, nblocks, 1/nline, out, steps, stream)
+_STATS_SIG = [_P, _I, _D, _P, _P, _P]
 #: (state dtype, solve dtype) -> entry suffix
 _TYPES = {(torch.float64, torch.float64): "f64",
           (torch.float32, torch.float32): "f32",
@@ -231,20 +233,22 @@ def unpack_blocks(B: int) -> int:
     return -(-B // THREADS)
 
 
-def branch_unpack(res, sol, gd, active0, use_linelimit: bool, out_dtype):
+def branch_unpack(res, sol, gd, active0, use_linelimit: bool, out_dtype,
+                  steps=None):
     """``branch.branch_unpack_plain`` in two launches (``unpack_partials``,
     ``branch_stats``): (u_new (B, 8), the new ALM state, lane_steps (B,)
     int32, the (5,) stats ``STATS``). The stats are this batch's, before
     any all-reduce; the ALM state is views of ``res`` (fp64 copies under
-    mixed precision), or ``sol``'s without line limits."""
+    mixed precision), or ``sol``'s without line limits. ``steps``, a 0-d
+    int64 tensor or None, gets the stats' two sums added to it."""
     inputs = unpack_inputs(res, sol, gd, active0, use_linelimit, out_dtype)
     if not _route("branch_unpack", inputs[6:] + inputs[:6]):
         from ..models.acopf.branch import branch_unpack_plain
         return branch_unpack_plain(res, sol, gd, active0, use_linelimit,
-                                   out_dtype)
+                                   out_dtype, steps)
     u_new, new_alm, lane_steps, part = unpack_partials(
         res, sol, gd, active0, use_linelimit, out_dtype)
-    return u_new, new_alm, lane_steps, branch_stats(part, gd.nline)
+    return u_new, new_alm, lane_steps, branch_stats(part, gd.nline, steps)
 
 
 def unpack_partials(res, sol, gd, active0, use_linelimit: bool, out_dtype):
@@ -281,17 +285,22 @@ def unpack_partials(res, sol, gd, active0, use_linelimit: bool, out_dtype):
     return u_new, new_alm, lane_steps, part
 
 
-def branch_stats(part, nline: int):
+def branch_stats(part, nline: int, steps=None):
     """The (5,) stats ``STATS`` from the unpack's (3, nblocks) partials in
     one launch (``branch_stats``), the averages over ``nline``; CUDA
-    tensors only, as ``unpack_partials``."""
+    tensors only, as ``unpack_partials``. ``steps``, a 0-d int64 tensor on
+    the same device or None, gets the two sums (the batch's TRON steps)
+    added to it by the same launch."""
     dtype, dev = part.dtype, part.device
     nb = part.shape[1]
-    validate("branch_stats", [("part", part, (3, nb), dtype)])
+    inputs = [("part", part, (3, nb), dtype)]
+    if steps is not None:
+        inputs.append(("steps", steps, (), torch.int64))
+    validate("branch_stats", inputs)
     out = torch.empty(len(STATS), dtype=dtype, device=dev)
     if nb == 0:
         return out.zero_()
     _launch("branch_stats", f"branch_stats_{_TYPES[(dtype, dtype)]}", dev,
             part.data_ptr(), nb, acopf_cuda.host_reciprocal(nline, dtype),
-            out.data_ptr())
+            out.data_ptr(), None if steps is None else steps.data_ptr())
     return out

@@ -58,6 +58,7 @@ import weakref
 
 import torch
 
+from ..utils import tracing
 from . import _build
 
 #: the set-condition kernel's launches
@@ -202,18 +203,20 @@ def no_syncs(device):
 
 def run_on_host(bodies, flags) -> None:
     """The loops of ``GraphLoop`` run by the host: ``bodies`` and ``flags``
-    as ``GraphLoop`` takes them, on tensors that live on the CPU."""
-    if len(bodies) == 1:
-        while bool(flags[0]):
-            bodies[0]()
-        return
-    pre, inner, tail = bodies
-    inner_flag, outer_flag = flags
-    while bool(outer_flag):
-        pre()
-        while bool(inner_flag):
-            inner()
-        tail()
+    as ``GraphLoop`` takes them, on tensors that live on the CPU. It is
+    the CPU's ``loop.launch`` span."""
+    with tracing.span("loop.launch"):
+        if len(bodies) == 1:
+            while bool(flags[0]):
+                bodies[0]()
+            return
+        pre, inner, tail = bodies
+        inner_flag, outer_flag = flags
+        while bool(outer_flag):
+            pre()
+            while bool(inner_flag):
+                inner()
+            tail()
 
 
 class GraphLoop:
@@ -237,7 +240,10 @@ class GraphLoop:
     hold (their temporaries, in one pool shared by the bodies, which run one
     at a time), as the allocator's reserved memory grew over the capture;
     ``rewritten`` the event nodes of the bodies that the loop graph holds
-    as edges; ``node_types()`` the captured bodies' nodes by type.
+    as edges; ``node_types()`` the captured bodies' nodes by type. With
+    tracing on (``utils/tracing.py``) the build's three steps and each
+    launch are spans, and ``device_seconds()`` gives the last launch's
+    device time.
     """
 
     def __init__(self, bodies, flags, warmup):
@@ -257,7 +263,7 @@ class GraphLoop:
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        with tracing.span("loop.build.warmup"), torch.cuda.stream(side):
             warmup()
         cur.wait_stream(side)
         torch.cuda.synchronize(dev)
@@ -270,7 +276,8 @@ class GraphLoop:
         # allocator's cache at every capture
         capture = torch.cuda.Stream(dev)
         capture.wait_stream(cur)
-        with self.counts.capturing(), torch.cuda.stream(capture):
+        with tracing.span("loop.build.capture"), self.counts.capturing(), \
+                torch.cuda.stream(capture):
             for body in bodies:
                 g = torch.cuda.CUDAGraph(keep_graph=True)
                 g.capture_begin(pool=pool, capture_error_mode="thread_local")
@@ -291,8 +298,9 @@ class GraphLoop:
             torch.cuda.current_device())
         build = (lib.graph_loop_two_level if self.nested
                  else lib.graph_loop_one_level)
-        err = build(*raw, *ptrs, index, ctypes.byref(exec_),
-                    ctypes.byref(bad), ctypes.byref(rewritten))
+        with tracing.span("loop.build.instantiate"):
+            err = build(*raw, *ptrs, index, ctypes.byref(exec_),
+                        ctypes.byref(bad), ctypes.byref(rewritten))
         if err != 0:
             refused = (NODE_TYPES[min(bad.value, len(NODE_TYPES) - 1)]
                        if bad.value >= 0 else "none named")
@@ -302,6 +310,7 @@ class GraphLoop:
                 f"{refused}; the bodies' nodes: {self.node_types()}")
         self.exec = exec_.value
         self.rewritten = rewritten.value
+        self.events, self.timed = None, False
         self._destroy = weakref.finalize(self, lib.graph_loop_destroy,
                                          self.exec)
         self.build_seconds = time.perf_counter() - t0
@@ -316,11 +325,29 @@ class GraphLoop:
         it."""
         lib = library()
         self.counts.values.zero_()
-        stream = torch.cuda.current_stream(self.device).cuda_stream
-        # marks the launch's host time in a profiler trace
-        with torch.profiler.record_function("graph_loop.launch"):
-            err = lib.graph_loop_launch(self.exec, stream)
+        stream = torch.cuda.current_stream(self.device)
+        # the span holds the graph's launch alone: on the stream, the
+        # device's next activities after its start are the graph's
+        with tracing.span("loop.launch") as span:
+            self.timed = span is not None
+            if self.timed:
+                if self.events is None:
+                    self.events = tuple(torch.cuda.Event(enable_timing=True)
+                                        for _ in range(2))
+                self.events[0].record(stream)
+            err = lib.graph_loop_launch(self.exec, stream.cuda_stream)
+            if self.timed:
+                self.events[1].record(stream)
         _build.check(lib, err, "graph_loop_launch")
+
+    def device_seconds(self):
+        """The seconds the device ran the last launch, if tracing was on at
+        the launch (one pair of CUDA events around it, on its stream; no
+        node of the graph); else None. Call it once the launch's results
+        have been read back, which waited for the events."""
+        if not self.timed:
+            return None
+        return self.events[0].elapsed_time(self.events[1]) * 1e-3
 
     def count(self, values) -> None:
         """Add the launches of the last run to the host's counts:

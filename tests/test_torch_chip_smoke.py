@@ -30,7 +30,7 @@ def test_rehearsal_on_cpu(case9_path, capsys):
     for phase in ("1", "1b", "1c", "2", "2b", "2c", "2d", "2f", "3", "3b",
                   "3c", "3d", "3e", "3f", "3g", "3h", "4h", "4", "5", "5h",
                   "6",
-                  "7", "8", "9a", "9b", "10a", "10b", "11"):
+                  "7", "8", "9a", "9b", "10a", "10b", "11", "11t"):
         assert f"phase {phase}:" in out
     # the hook kernels against their plain versions (trivially exact on the
     # CPU, where the wrappers run the plain versions), the residual's tree
@@ -126,6 +126,11 @@ def test_rehearsal_on_cpu(case9_path, capsys):
         assert res["fused"][label]["cumul"] == res[base]["cumul"]
         assert res["fused"][label]["obj"] == res[base]["obj"]
     assert out.count("fused == host") == 15
+    # 11t: the tracer on against off, and its step counter against the
+    # host loop's stats (no device clock on the CPU)
+    assert res["tracing"]["tron_steps"] > res["tracing"]["cumul"] > 0
+    assert res["tracing"]["device_s"] is None
+    assert "tracing on == off" in out
     names = [k["name"] for k in res["kernels"]]
     assert names == ["tron_alm_branch", "tron_alm_ramp", "tron_alm_qpsub",
                      "bus_scatter", "tron_alm_polar", "graph_loop",
