@@ -891,8 +891,33 @@ def _branch_io_held(label: str, sol, gd, par, it, use_linelimit: bool,
     steps_ref = steps.clone()
     uagain = flat(branch_cuda.branch_unpack(*uargs, steps))
     uref = flat(branch.branch_unpack_plain(*uargs, steps_ref))
+
+    def carried():
+        # as a fused loop's carry passes it, on a fresh copy of the state:
+        # the line rows over u_old, the ALM state over the state's own,
+        # the stats into an fp64 (5,) buffer
+        alm = sol.branch_alm
+        s = sol.replace(u=sol.u.replace(line=sol.u.line.clone()),
+                        branch_alm=alm.replace(lam1=alm.lam1.clone(),
+                                               lam2=alm.lam2.clone(),
+                                               mu=alm.mu.clone()))
+        st = torch.zeros(len(branch_cuda.STATS), dtype=torch.float64,
+                         device=sol.u.line.device)
+        r = branch_cuda.branch_unpack(
+            res, s, gd, act, use_linelimit, out_dtype,
+            out=(s.u.line, s.branch_alm, None, st))
+        dsts = [s.u.line, s.branch_alm.lam1, s.branch_alm.lam2,
+                s.branch_alm.mu, None, st]
+        _check(all(d is None or a is d for a, d in zip(flat(r), dsts)),
+               f"phase 2f: {label}: the unpack given out returned other "
+               f"tensors")
+        return flat(r)
+
+    cref = uref[:5] + [uref[5].to(torch.float64)]
     _sync(dev)
-    pairs = {"pack": (got, again, ref), "unpack": (ugot, uagain, uref)}
+    pairs = {"pack": (got, again, ref), "unpack": (ugot, uagain, uref),
+             "unpack into the state's buffers": (carried(), carried(),
+                                                 cref)}
     for what, (a, b, r) in pairs.items():
         same = all(x.dtype == y.dtype and bool(torch.equal(x, y))
                    for x, y in zip(a, r))
@@ -906,7 +931,8 @@ def _branch_io_held(label: str, sol, gd, par, it, use_linelimit: bool,
     inactive = int((act == 0).sum())
     B = sol.u.line.shape[0]
     print(f"phase 2f: {label}: B={B} ({inactive} inactive), pack, unpack "
-          f"and stats bit-identical to their plain versions and to a rerun; "
+          f"and stats bit-identical to their plain versions and to a rerun, "
+          f"the unpack also into the state's own buffers; "
           f"stats {[float(x) for x in ugot[-1]]}; step counter +"
           f"{want - 7}")
     floats = list(zip([*got[:-1], *ugot[:4]], [*ref[:-1], *uref[:4]]))
@@ -1502,6 +1528,65 @@ def phase4h_hooks(dev, data, on_card: bool, iters: int = 3) -> dict:
             lambda: A.bus_update(u, z, l, rho, gd),
             lambda: K.bus_update(u, z, l, rho, gd), blocks_of),
     }
+
+    # each hook into the buffers a fused loop's carry passes it (fresh
+    # copies of the state's, generator's over its own input u.gen), which
+    # it must return; the residual's scalars into an fp64 (6,) buffer, and
+    # from fp32 block sums too
+    def copy_of(t):
+        if isinstance(t, tuple):
+            return tuple(copy_of(x) for x in t)
+        if isinstance(t, Blocks):
+            return Blocks(gen=t.gen.clone(), line=t.line.clone())
+        return t.clone()
+
+    def into(hook, dst):
+        def run():
+            d = copy_of(dst)
+            r = hook(d)
+            if isinstance(r, tuple):   # rp, rd, the scalars' views of d[2]
+                ok = (r[0] is d[0] and r[1] is d[1]
+                      and r[2]["primres"].data_ptr() == d[2].data_ptr())
+            else:
+                ok = r is d
+            _check(ok, "phase 4h: a hook given out returned other tensors")
+            return r
+        return run
+
+    def scalars_of(r):
+        return blocks_of(r[0]) + blocks_of(r[1]) + [
+            torch.stack([r[2][k] for k in A.SCALARS])]
+
+    six = torch.zeros(len(A.SCALARS), dtype=torch.float64, device=dev)
+    p32 = part_p.float()
+    extra.update({
+        "acopf_generator into u.gen": (
+            into(lambda d: A.generator_update(
+                d, v.gen, z.gen, l.gen, rho.gen, model.pgmin_curr,
+                model.pgmax_curr, gd.qgmin, gd.qgmax, gd.c2, gd.c1,
+                gd.baseMVA, obj_scale=model.par.obj_scale, out=d), u.gen),
+            gen_plain, lambda r: [r]),
+        "acopf_bus_update into v": (
+            into(lambda d: A.bus_update(u, z, l, rho, gd, out=d), v),
+            lambda: K.bus_update(u, z, l, rho, gd), blocks_of),
+        "acopf_z into z": (
+            into(lambda d: A.z_update(u, v, l, rho, lz, bt, out=d), z),
+            lambda: K.z_update(u, v, l, rho, lz, bt), blocks_of),
+        "acopf_l into l": (
+            into(lambda d: A.l_update(z, lz, bt, out=d), l),
+            lambda: K.l_update(z, lz, bt), blocks_of),
+        "acopf_residual_final f32 into an fp64 buffer": (
+            into(lambda d: A.residual_final(
+                p32[:A.LINE_SUMS], p32[A.LINE_SUMS:], bt.float(), out=d),
+                six),
+            lambda: A.residual_final_plain(
+                p32[:A.LINE_SUMS], p32[A.LINE_SUMS:], bt.float()).double(),
+            lambda r: [r]),
+        "acopf_residual_update into rp, rd and an fp64 buffer": (
+            into(lambda d: A.residual_update(sol, gd, bt, out=d),
+                 (sol.rp, sol.rd, six)),
+            lambda: A.residual_update(sol, gd, bt), scalars_of),
+    })
     out = {}
     for name, (kern, plain, outs) in {**cases, **extra}.items():
         got, again, ref = outs(kern()), outs(kern()), outs(plain())
@@ -1614,9 +1699,10 @@ def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
     _sync(dev)
     _zero_launches()
     t0 = time.perf_counter()
-    res = E.solve_acopf(data.case, data=data, use_linelimit=use_linelimit,
-                        device=dev,
-                        **dict(MAIN_KW, outer_iterlim=outer_iterlim))
+    with _loops_built() as built:
+        res = E.solve_acopf(data.case, data=data,
+                            use_linelimit=use_linelimit, device=dev,
+                            **dict(MAIN_KW, outer_iterlim=outer_iterlim))
     _sync(dev)
     secs = time.perf_counter() - t0
     launches = _launches()
@@ -1650,6 +1736,15 @@ def phase4_main(dev, data, on_card: bool, use_linelimit: bool = True,
                f"{label}: loop launches {launches}")
         _check(launches["bus_scatter"] == 2 * (info.cumul + WARMUP),
                f"{label}: bus launches {launches}")
+        # the hooks write into the loop's carry: the inner body's only
+        # copies are z_prev's two blocks and the new line rows of u
+        _check(len(built) == 1, f"{label}: {len(built)} loops built")
+        inner_nodes = built[0].node_types()[1]
+        print(f"{label}: the inner body's nodes {inner_nodes}")
+        _check(inner_nodes.get("memcpy", 0) <= 3,
+               f"{label}: the inner body holds "
+               f"{inner_nodes.get('memcpy', 0)} memcpy nodes, more than "
+               f"z_prev's 2 and u's line rows: {inner_nodes}")
     return dict(launches=launches, rate=rate, seconds=secs,
                 mismatch=info.mismatch, peak=peak, outer=info.outer,
                 cumul=info.cumul, obj=info.objval, status=info.status)

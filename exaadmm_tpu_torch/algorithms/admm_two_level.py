@@ -44,6 +44,21 @@ while tracing is on also counts the line batch's TRON steps in its carry
 iteration), read back with the other scalars. A graph captured with
 tracing off or on has the same nodes.
 
+A model that ``writes_into_carry`` has hooks that take destinations
+(``out``, the carry's solution; ``stats_out`` and ``scalars_out``, the
+carry's buffers of the branch stats and of the residual's scalars), and
+its hooks' kernels write the new state straight into the fused loop's
+buffers, so the inner body stores no copy of it: ``z_prev`` takes ``z``'s
+values (two copies) before the z update overwrites ``z`` in place, and the
+new line rows of u, which the branch update returns in a tensor of its
+own, are copied in (one copy). Every hook of the inner iteration reads
+only the elements it writes, or buffers it does not write, so the in-place
+order gives the host loop's values. Other models' hooks return fresh
+tensors, which the body copies in. With tracing on, the ``loop.build``
+span's ``store_copies`` holds the copies ``Carry.store`` makes in one run
+of each body (``pre``, ``inner``, ``tail``), counted in the graph's
+warm-up on the card (None on the CPU, which captures no graph).
+
 With ``Parameters.sort_lines`` and a model that ``supports_line_sort``,
 each outer round starts by sorting the line batch by the lanes' effort in
 the last inner iteration (``lane_steps``, stable ascending, as the JAX
@@ -78,6 +93,8 @@ import time
 import torch
 
 from ..ops import graph_loop
+from ..ops.acopf_cuda import SCALARS
+from ..ops.branch_cuda import STATS
 from ..parallel import sharding
 from ..utils import tracing
 from ..utils.environment import (IterationInformation, Solution,
@@ -213,6 +230,7 @@ _START_INF = ("norm_z", "norm_z_prev", "mismatch", "primres", "dualres")
 _RESIDUAL = {"primres": "primres", "dualres": "dualres",
              "norm_z": "norm_z_curr", "mismatch": "mismatch",
              "objval": "objval", "auglag": "auglag"}
+_BODIES = ("pre", "inner", "tail")
 
 
 class FusedSolver:
@@ -257,6 +275,7 @@ class FusedSolver:
             self.par = model.par
         self.sorting = bool(getattr(model, "supports_line_sort", False)
                             and self.par.sort_lines)
+        self.in_place = bool(getattr(model, "writes_into_carry", False))
 
     # ---- the loop bodies: static buffers in, static buffers out ----
     def _outer_flag(self, c: Carry):
@@ -287,19 +306,33 @@ class FusedSolver:
         """One inner iteration, then the inner flag: (inner <
         inner_iterlim) & (primres > eps_pri)."""
         m, v = self.model, c.v
-        inner = v["inner"] + 1
         beta = v["beta"].to(self.dtype)
         sol = m.inner_prestep(c.sol)
-        sol, stats = m.update_x(sol, inner)
-        sol = m.update_xbar(sol, Pd=self.Pd, Qd=self.Qd)
-        sol = m.update_z(sol, beta)
-        sol = m.update_l(sol, beta)
-        sol, scalars = m.update_residual(sol, beta)
+        # a model that writes into the carry gets its buffers as the
+        # hooks' destinations
+        dst, x_dst, r_dst = {}, {}, ()
+        if self.in_place:
+            v["inner"].add_(1)
+            inner = v["inner"]
+            c.store(sol)    # z_prev <- z, before z is written in place
+            sol = c.sol
+            dst = dict(out=sol)
+            x_dst = dict(dst, stats_out=v["branch_stats"])
+            # by position: the benchmark's objective fault wraps this hook
+            # as ``(self, *args)``
+            r_dst = (sol, v["residual"])
+        else:
+            inner = v["inner"] + 1
+        sol, stats = m.update_x(sol, inner, **x_dst)
+        sol = m.update_xbar(sol, Pd=self.Pd, Qd=self.Qd, **dst)
+        sol = m.update_z(sol, beta, **dst)
+        sol = m.update_l(sol, beta, **dst)
+        sol, scalars = m.update_residual(sol, beta, *r_dst)
         c.store(sol)
-        v["inner"].copy_(inner)
+        c.put("inner", inner)
         for k, name in _RESIDUAL.items():
-            v[k].copy_(scalars[name])
-        v["max_cviol"].copy_(stats["max_cviol"])
+            c.put(k, scalars[name])
+        c.put("max_cviol", stats["max_cviol"])
         if self.sorting:
             v["lane_steps"].copy_(stats["lane_steps"])
         # sqrt_d / (2500 outer) as the host computes it (a Python float
@@ -379,9 +412,20 @@ class FusedSolver:
         if tracing.enabled():
             # the line batch's TRON steps (``tracing.counting_steps``)
             order["tron_steps"] = count
+        views = {}
+        if self.in_place:
+            # the residual's scalars and max_cviol: views of the buffers
+            # that the hooks write whole
+            views = {k: ("residual", SCALARS.index(name))
+                     for k, name in _RESIDUAL.items()}
+            views["max_cviol"] = ("branch_stats", STATS.index("max_cviol"))
+            order.update(residual=zero.new_zeros(len(SCALARS)),
+                         branch_stats=zero.new_zeros(len(STATS)))
+        floats = {k: zero for k in _FLOATS if k not in views}
         self.carry = c = Carry(sol, dict(
-            {k: zero for k in _FLOATS}, **{k: count for k in _COUNTERS},
-            inner_flag=flag, outer_flag=flag, **order))
+            floats, **{k: count for k in _COUNTERS},
+            inner_flag=flag, outer_flag=flag, **order), views)
+        self.store_copies = None
         if dev.type != "cuda":
             return
         self._reset(c, sol, info)
@@ -391,12 +435,21 @@ class FusedSolver:
         with tracing.counting_steps(c.v.get("tron_steps")):
             self.loop = graph_loop.GraphLoop(
                 self._bodies(c), (c.v["inner_flag"], c.v["outer_flag"]),
-                warmup=lambda: (self._pre(w), self._inner(w),
-                                self._tail(w)))
+                warmup=lambda: self._run_bodies(w))
 
     def _bodies(self, c: Carry) -> tuple:
         return (lambda: self._pre(c), lambda: self._inner(c),
                 lambda: self._tail(c))
+
+    def _run_bodies(self, c: Carry) -> None:
+        """Run each body once on ``c`` (the graph's warm-up), noting the
+        copies ``Carry.store`` makes in each (``store_copies``)."""
+        copies = {}
+        for name, body in zip(_BODIES, self._bodies(c)):
+            n = c.copies
+            body()
+            copies[name] = c.copies - n
+        self.store_copies = copies
 
     def __call__(self, sol, info: IterationInformation, Pd=None, Qd=None,
                  pgmin_curr=None, pgmax_curr=None, model=None):
@@ -416,8 +469,10 @@ class FusedSolver:
             span.attrs["built"] = built
         if built:
             t0 = time.perf_counter()
-            with tracing.span("loop.build"):
+            with tracing.span("loop.build") as build:
                 self._build(sol, info, Pd, Qd, pgmin_curr, pgmax_curr)
+                if build is not None:
+                    build.attrs["store_copies"] = self.store_copies
             info.time_build = time.perf_counter() - t0
         given = {k: t for k, t in dict(
             Pd=Pd, Qd=Qd, pgmin_curr=pgmin_curr,

@@ -9,6 +9,11 @@ loop's counters, scalars and flags (0-d) and for what else a loop carries
 from trip to trip (a sorted loop's line order). A body computes the new state from
 ``carry.sol`` as the host loop does, then stores it back (``store``); after
 the loop the driver reads the scalars back in one copy (``read_back``).
+
+A body whose hooks write into the buffers themselves (the hooks' ``out``)
+hands ``store`` the buffers, and ``store`` makes no copy of them: each
+copy it skips is one node fewer in a captured body, on every replay.
+``copies`` counts the copies ``store`` has made, clones included.
 """
 
 from __future__ import annotations
@@ -42,15 +47,22 @@ def rebuild(rec, tensors):
 
 class Carry:
     """Buffers for the tensors of ``template`` (cloned from it) and for the
-    tensors ``scalars`` (name -> initial tensor, cloned)."""
+    tensors ``scalars`` (name -> initial tensor, cloned); ``views`` (name
+    -> (name of a buffer of ``scalars``, index)) adds named views of those
+    buffers, so that a kernel that writes a whole buffer fills each."""
 
-    def __init__(self, template, scalars: dict):
+    def __init__(self, template, scalars: dict, views: dict | None = None):
         self.template = template
         self.state = [t.clone() for t in leaves(template)]
         self.v = {k: t.clone() for k, t in scalars.items()}
+        self.views = dict(views or {})
+        for k, (base, i) in self.views.items():
+            self.v[k] = self.v[base][i]
+        self.copies = 0
 
     def clone(self) -> "Carry":
-        return Carry(self.sol, self.v)
+        return Carry(self.sol, {k: t for k, t in self.v.items()
+                                if k not in self.views}, self.views)
 
     @property
     def sol(self):
@@ -72,13 +84,27 @@ class Carry:
         """Store ``sol``, computed from ``self.sol``, into the buffers. A
         tensor that is already its own buffer is left alone; one that is
         another buffer or a view of one (``z_prev = z``) is copied out
-        before any buffer is overwritten."""
-        held = {t.untyped_storage().data_ptr() for t in self.state}
-        src = [s if s is d or s.untyped_storage().data_ptr() not in held
-               else s.clone() for d, s in zip(self.state, leaves(sol))]
+        first if this store overwrites that buffer, else copied straight
+        from it (``z_prev`` taken before the hooks write ``z`` in place)."""
+        src = leaves(sol)
+        written = {d.untyped_storage().data_ptr()
+                   for d, s in zip(self.state, src) if s is not d}
+        src = [s if s is d or s.untyped_storage().data_ptr() not in written
+               else self._count(s.clone()) for d, s in zip(self.state, src)]
         for d, s in zip(self.state, src):
             if s is not d:
-                d.copy_(s)
+                self._count(d.copy_(s))
+
+    def _count(self, t):
+        self.copies += 1
+        return t
+
+    def put(self, name: str, t) -> None:
+        """``v[name] <- t``, unless ``t`` is already that buffer's memory
+        (a hook wrote it in place)."""
+        d = self.v[name]
+        if t.data_ptr() != d.data_ptr() or t.dtype != d.dtype:
+            d.copy_(t)
 
     def store_where(self, cond, a, b) -> None:
         """Store ``where(cond, a, b)`` tensor by tensor (``a`` and ``b``

@@ -214,14 +214,15 @@ struct UnpackIn {
   const uint8_t* act;
 };
 
-// what it writes: the new line rows (B, 8), the multipliers and penalty
-// widened to the state's type (mixed precision with line limits; else
-// null), the lane steps, and per block the two sums and the maximum
-// (part (3, nblocks))
+// what it writes: the new line rows (B, 8), the two multipliers and the
+// penalty in the state's type (with line limits: widened under mixed
+// precision, or into a caller's buffers; else null), the lane steps, and
+// per block the two sums and the maximum (part (3, nblocks))
 template <typename S>
 struct UnpackOut {
   S* u_new;
-  S* lam_up;
+  S* lam1_up;
+  S* lam2_up;
   S* mu_up;
   int* lane_steps;
   S* part;
@@ -264,9 +265,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < 8; ++k) o[k] = old[k];
     }
-    if (kLimits && out.lam_up != nullptr) {
-      out.lam_up[i] = static_cast<S>(in.lam[i]);
-      out.lam_up[B + i] = static_cast<S>(in.lam[B + i]);
+    if (kLimits && out.lam1_up != nullptr) {
+      out.lam1_up[i] = static_cast<S>(in.lam[i]);
+      out.lam2_up[i] = static_cast<S>(in.lam[B + i]);
       out.mu_up[i] = static_cast<S>(in.mu[i]);
     }
     const S m = in.mask[i];
@@ -396,9 +397,9 @@ template <typename S, typename V, bool kLimits>
 int launch_unpack(const void* x, const void* lam, const void* mu,
                   const void* minor, const void* alm, const void* cviol,
                   const void* u_old, const void* const* Y, const void* mask,
-                  const void* act, void* u_new, void* lam_up, void* mu_up,
-                  void* lane_steps, void* part, int B, int nblocks,
-                  void* stream) {
+                  const void* act, void* u_new, void* lam1_up,
+                  void* lam2_up, void* mu_up, void* lane_steps, void* part,
+                  int B, int nblocks, void* stream) {
   // the caller sized part from the same block count
   if (nblocks != static_cast<int>(blocks_for(B)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -406,9 +407,9 @@ int launch_unpack(const void* x, const void* lam, const void* mu,
                     cp<int>(alm), cp<V>(cviol), cp<S>(u_old), {},
                     cp<S>(mask),  cp<uint8_t>(act)};
   for (int k = 0; k < 8; ++k) in.Y[k] = cp<S>(Y[k]);
-  UnpackOut<S> out{static_cast<S*>(u_new), static_cast<S*>(lam_up),
-                   static_cast<S*>(mu_up), static_cast<int*>(lane_steps),
-                   static_cast<S*>(part)};
+  UnpackOut<S> out{static_cast<S*>(u_new), static_cast<S*>(lam1_up),
+                   static_cast<S*>(lam2_up), static_cast<S*>(mu_up),
+                   static_cast<int*>(lane_steps), static_cast<S*>(part)};
   if (B > 0)
     unpack_kernel<S, V, kLimits><<<nblocks, kThreads, 0, st(stream)>>>(
         in, out, B);
@@ -453,13 +454,14 @@ int launch_stats(const void* part, int nblocks, double inv_nline, void* out,
       const void* alm, const void* cviol, const void* u_old, const void* Y0, \
       const void* Y1, const void* Y2, const void* Y3, const void* Y4,        \
       const void* Y5, const void* Y6, const void* Y7, const void* mask,      \
-      const void* act, void* u_new, void* lam_up, void* mu_up,               \
-      void* lane_steps, void* part, int B, int nblocks, void* stream) {      \
+      const void* act, void* u_new, void* lam1_up, void* lam2_up,            \
+      void* mu_up, void* lane_steps, void* part, int B, int nblocks,         \
+      void* stream) {                                                        \
     const void* Y[8] = {Y0, Y1, Y2, Y3, Y4, Y5, Y6, Y7};                     \
     return launch_unpack<S, V, LIMITS>(x, lam, mu, minor, alm, cviol, u_old, \
-                                       Y, mask, act, u_new, lam_up, mu_up,   \
-                                       lane_steps, part, B, nblocks,         \
-                                       stream);                              \
+                                       Y, mask, act, u_new, lam1_up,         \
+                                       lam2_up, mu_up, lane_steps, part, B,  \
+                                       nblocks, stream);                     \
   }
 
 #define BRANCH_IO_ENTRIES(INST, LIMITS)             \

@@ -478,10 +478,15 @@ def branch_unpack_plain(res: TronALMResult, sol: Solution, gd: GridData,
 
 
 def branch_update(sol: Solution, gd: GridData, par: Parameters,
-                  inner_iter, use_linelimit: bool = True):
+                  inner_iter, use_linelimit: bool = True, out=None):
     """Solve all line subproblems; returns (new u line block, new ALM state,
     stats). The stats are tensors (nothing is read back here). Without line
     limits the ALM state is returned unchanged and ``max_cviol`` is 0.
+    ``out`` is (u line block, ALM state, (5,) stats buffer), each a
+    destination or None: the unpack writes the new line rows, the ALM state
+    and the batch's stats there (``ops/branch_cuda.py``), and ``max_cviol``
+    is then a view of the stats buffer (without a gloo mesh on the card,
+    whose all-reduce returns a new tensor).
 
     Three steps, each a hand-written kernel on the card
     (``ops/branch_cuda.py``, ``ops/tron_cuda.py``) and its plain version on
@@ -508,8 +513,10 @@ def branch_update(sol: Solution, gd: GridData, par: Parameters,
     *batch, active0 = branch_cuda.branch_pack(
         sol, gd, par, inner_iter, use_linelimit, solve_dtype)
     res = tron_cuda.tron_alm_packed(inst, *batch, active0=active0, **opts)
+    u_out, alm_out, stats_out = (None,) * 3 if out is None else out
     u_new, new_alm, lane_steps, tot = branch_cuda.branch_unpack(
-        res, sol, gd, active0, use_linelimit, out_dtype, tracing.steps)
+        res, sol, gd, active0, use_linelimit, out_dtype, tracing.steps,
+        out=(u_out, alm_out, None, stats_out))
     if gd.mesh is None:
         avg, max_cv = tot[3:], tot[2]
     else:

@@ -26,6 +26,10 @@ class ModelAcopf:
     # the driver may difficulty-sort the line batch between outer rounds
     # (``Parameters.sort_lines``) through ``with_line_order``
     supports_line_sort = True
+    # the inner iteration's hooks take destinations (``out``, a solution
+    # whose tensors receive the results; ``stats_out``, ``scalars_out``),
+    # into which their kernels write: the fused driver passes its carry
+    writes_into_carry = True
 
     def __init__(self, grid: GridData, par: Parameters,
                  use_linelimit: bool = True):
@@ -60,41 +64,64 @@ class ModelAcopf:
 
     # ---- hooks called by the ADMM driver: the closed-form ones go through
     # ``ops/acopf_cuda.py`` (the hand-written kernels on the card, the
-    # plain functions of ``kernels.py`` on the CPU) ----
+    # plain functions of ``kernels.py`` on the CPU). Given ``out``, a hook
+    # writes its results into ``out``'s tensors and returns them; it reads
+    # ``sol``'s, which may be those same tensors (the fused loop's carry:
+    # every kernel reads only the elements it writes, or buffers it does
+    # not write) ----
     def inner_prestep(self, sol: Solution) -> Solution:
         return sol.replace(z_prev=sol.z)
 
-    def update_x(self, sol: Solution, inner_iter):
-        """x update: closed-form generators + the branch TRON/ALM batch."""
+    def update_x(self, sol: Solution, inner_iter, out: Solution | None = None,
+                 stats_out=None):
+        """x update: closed-form generators + the branch TRON/ALM batch;
+        ``stats_out`` receives the branch stats (``branch_cuda.STATS``)."""
         gd = self.grid
         u_gen = acopf_cuda.generator_update(
             sol.u.gen, sol.v.gen, sol.z.gen, sol.l.gen, sol.rho.gen,
             self.pgmin_curr, self.pgmax_curr, gd.qgmin, gd.qgmax,
             gd.c2, gd.c1, gd.baseMVA, obj_scale=self.par.obj_scale,
+            out=None if out is None else out.u.gen,
         )
+        # the new line rows come back in a tensor of their own, which the
+        # driver copies in: ``sol.u.line`` holds the old rows until the
+        # call returns, for a caller that wraps ``branch_update`` and reads
+        # them after it (the benchmark's planted faults)
         u_line, alm, stats = branch_update(
-            sol, gd, self.par, inner_iter, use_linelimit=self.use_linelimit)
+            sol, gd, self.par, inner_iter, use_linelimit=self.use_linelimit,
+            out=None if out is None else (None, out.branch_alm, stats_out))
         return sol.replace(u=Blocks(gen=u_gen, line=u_line),
                            branch_alm=alm), stats
 
-    def update_xbar(self, sol: Solution, Pd=None, Qd=None) -> Solution:
+    def update_xbar(self, sol: Solution, Pd=None, Qd=None,
+                    out: Solution | None = None) -> Solution:
         v = acopf_cuda.bus_update(sol.u, sol.z, sol.l, sol.rho, self.grid,
-                                  Pd=Pd, Qd=Qd)
+                                  Pd=Pd, Qd=Qd,
+                                  out=None if out is None else out.v)
         return sol.replace(v=v)
 
-    def update_z(self, sol: Solution, beta) -> Solution:
-        return sol.replace(z=acopf_cuda.z_update(sol.u, sol.v, sol.l,
-                                                 sol.rho, sol.lz, beta))
+    def update_z(self, sol: Solution, beta,
+                 out: Solution | None = None) -> Solution:
+        return sol.replace(z=acopf_cuda.z_update(
+            sol.u, sol.v, sol.l, sol.rho, sol.lz, beta,
+            out=None if out is None else out.z))
 
-    def update_l(self, sol: Solution, beta) -> Solution:
-        return sol.replace(l=acopf_cuda.l_update(sol.z, sol.lz, beta))
+    def update_l(self, sol: Solution, beta,
+                 out: Solution | None = None) -> Solution:
+        return sol.replace(l=acopf_cuda.l_update(
+            sol.z, sol.lz, beta, out=None if out is None else out.l))
 
     def update_lz(self, sol: Solution, beta) -> Solution:
         return sol.replace(lz=acopf_cuda.lz_update(sol.z, sol.lz, beta,
                                                    self.par.MAX_MULTIPLIER))
 
-    def update_residual(self, sol: Solution, beta):
-        rp, rd, scalars = acopf_cuda.residual_update(sol, self.grid, beta)
+    def update_residual(self, sol: Solution, beta,
+                        out: Solution | None = None, scalars_out=None):
+        """(sol with rp and rd, the six scalars of ``acopf_cuda.SCALARS``
+        by name); ``scalars_out`` receives them in that order."""
+        rp, rd, scalars = acopf_cuda.residual_update(
+            sol, self.grid, beta,
+            out=None if out is None else (out.rp, out.rd, scalars_out))
         return sol.replace(rp=rp, rd=rd), scalars
 
 

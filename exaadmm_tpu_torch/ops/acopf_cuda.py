@@ -29,6 +29,16 @@ A scalar that the fused driver's graph changes between replays (``beta``,
 a 0-d tensor there) goes to the kernel by pointer; a Python float (the host
 loop's) by value. Nothing here reads device data back.
 
+``out``: every wrapper that the inner iteration runs (``generator_update``,
+``bus_update``/``bus_writeback``, ``z_update``, ``l_update``, the
+residual's three) takes an optional destination shaped as what it returns,
+and returns that destination: on the card the kernel writes it in place of
+a new tensor, on the CPU the plain version's result is copied into it. A
+destination may be an input's memory wherever the kernel reads only the
+elements it writes (the fused driver's carry: u, v, z, l, rp, rd); the
+residual's scalars go into a (6,) tensor of any float type (copied when it
+is not the kernel's).
+
 Which models run these kernels is a rule by model: ``ModelAcopf``'s hooks
 (every path of a single-period solve: with and without line limits, the
 projection, rolling horizon, mixed precision, ``sort_lines``, a mesh, the
@@ -196,6 +206,37 @@ def _like(b: Blocks) -> Blocks:
     return Blocks(gen=torch.empty_like(b.gen), line=torch.empty_like(b.line))
 
 
+def check_out(what: str, out, like) -> None:
+    """A destination (a tensor or ``Blocks``) of ``like``'s shapes,
+    dtype and device, contiguous; None passes."""
+    if out is None:
+        return
+    if isinstance(like, Blocks):
+        check_out(what, out.gen, like.gen)
+        check_out(what, out.line, like.line)
+        return
+    if (out.shape != like.shape or out.dtype != like.dtype
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous {like.dtype} "
+                         f"tensor of shape {tuple(like.shape)} on "
+                         f"{like.device}; got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+
+
+def land(out, result):
+    """``result`` in ``out`` (a tensor or ``Blocks``; None gives ``result``
+    as it is), copied unless it is already there; returns ``out``."""
+    if out is None:
+        return result
+    if isinstance(out, Blocks):
+        land(out.gen, result.gen)
+        land(out.line, result.line)
+        return out
+    if out is not result:
+        out.copy_(result)
+    return out
+
+
 def _sizes(b: Blocks):
     return b.gen.shape[0], b.line.shape[0]
 
@@ -203,26 +244,32 @@ def _sizes(b: Blocks):
 # ---- z, l, lz
 
 def z_update(u: Blocks, v: Blocks, l: Blocks, rho: Blocks, lz: Blocks,
-             beta) -> Blocks:
-    """``kernels.z_update`` in one launch (``acopf_z``)."""
+             beta, out: Blocks | None = None) -> Blocks:
+    """``kernels.z_update`` in one launch (``acopf_z``), into ``out`` if
+    given (z is not read)."""
     ngen, nline = _sizes(u)
+    check_out("z_update", out, u)
     if not _route("z_update", _blocks(u, v, l, rho, lz), ngen=ngen,
                   nline=nline):
-        return kernels.z_update(u, v, l, rho, lz, beta)
+        return land(out, kernels.z_update(u, v, l, rho, lz, beta))
     dtype, dev = u.gen.dtype, u.gen.device
-    z = _like(u)
+    z = _like(u) if out is None else out
     _launch("acopf_z", dev, dtype, *_ptrs(_blocks(u, v, l, rho, lz, z)),
             2 * ngen, 8 * nline, *_scalar(beta, "z_update", dtype, dev))
     return z
 
 
-def l_update(z: Blocks, lz: Blocks, beta) -> Blocks:
-    """``kernels.l_update`` in one launch (``acopf_l``)."""
+def l_update(z: Blocks, lz: Blocks, beta,
+             out: Blocks | None = None) -> Blocks:
+    """``kernels.l_update`` in one launch (``acopf_l``), into ``out`` if
+    given (l is not read)."""
     ngen, nline = _sizes(z)
+    check_out("l_update", out, z)
     if not _route("l_update", _blocks(z, lz), ngen=ngen, nline=nline):
-        return kernels.l_update(z, lz, beta)
+        return land(out, kernels.l_update(z, lz, beta))
     dtype, dev = z.gen.dtype, z.gen.device
-    out = _like(z)
+    if out is None:
+        out = _like(z)
     _launch("acopf_l", dev, dtype, *_ptrs(_blocks(z, lz, out)), 2 * ngen,
             8 * nline, *_scalar(beta, "l_update", dtype, dev))
     return out
@@ -245,19 +292,20 @@ def lz_update(z: Blocks, lz: Blocks, beta, max_multiplier) -> Blocks:
 
 def generator_update(u_gen, v_gen, z_gen, l_gen, rho_gen, pgmin, pgmax,
                      qgmin, qgmax, c2, c1, baseMVA: float,
-                     obj_scale: float = 1.0):
+                     obj_scale: float = 1.0, out=None):
     """``kernels.generator_update`` with the effective cost coefficients
     ``c2 * obj_scale`` and ``c1 * obj_scale`` (the model's ``c2_eff`` and
-    ``c1_eff``), formed inside the kernel (``acopf_generator``); ``u_gen``
-    is not read, as in the plain version."""
+    ``c1_eff``), formed inside the kernel (``acopf_generator``), into
+    ``out`` if given; ``u_gen`` is not read, as in the plain version."""
     ngen = v_gen.shape[0]
     floats = [v_gen, z_gen, l_gen, rho_gen, pgmin, pgmax, qgmin, qgmax, c2,
               c1]
+    check_out("generator_update", out, v_gen)
     if not _route("generator_update", floats, ngen=ngen):
-        return kernels.generator_update(
+        return land(out, kernels.generator_update(
             u_gen, v_gen, z_gen, l_gen, rho_gen, pgmin, pgmax, qgmin, qgmax,
-            c2 * obj_scale, c1 * obj_scale, baseMVA)
-    u = torch.empty_like(v_gen)
+            c2 * obj_scale, c1 * obj_scale, baseMVA))
+    u = torch.empty_like(v_gen) if out is None else out
     _launch("acopf_generator", v_gen.device, v_gen.dtype,
             *_ptrs(floats + [u]), ngen, float(obj_scale), float(baseMVA),
             float(baseMVA) ** 2)
@@ -307,39 +355,42 @@ def bus_solve(agg, gsum, gd, Pd, Qd):
     return wtm
 
 
-def bus_writeback(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, wtm, gd
-                  ) -> Blocks:
+def bus_writeback(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, wtm, gd,
+                  out: Blocks | None = None) -> Blocks:
     """The new v: ``kernels.bus_writeback`` in one launch
-    (``acopf_bus_writeback``)."""
+    (``acopf_bus_writeback``), into ``out`` if given (v is not read)."""
     ngen, nline = _sizes(u)
     floats = _blocks(u, z, l, rho) + [wtm]
     ints = [gd.line_from, gd.line_to, gd.gen_bus]
+    check_out("bus_writeback", out, u)
     if not _route("bus_writeback", floats, ints, ngen=ngen, nline=nline):
-        return kernels.bus_writeback(u, z, l, rho, wtm, gd)
+        return land(out, kernels.bus_writeback(u, z, l, rho, wtm, gd))
     if wtm.shape != (gd.nbus, 4) or any(
             t.shape != (n,) for t, n in zip(ints, (nline, nline, ngen))):
         raise ValueError("bus_writeback: wtm or the index arrays do not "
                          "match the blocks")
-    v = _like(u)
+    v = _like(u) if out is None else out
     _launch("acopf_bus_writeback", u.gen.device, u.gen.dtype,
             *_ptrs(floats + ints + _blocks(v)), nline, ngen)
     return v
 
 
 def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd,
-               Pd=None, Qd=None) -> Blocks:
+               Pd=None, Qd=None, out: Blocks | None = None) -> Blocks:
     """``kernels.bus_update`` (single period): three launches around the
     two bus scatters and, with the lines split over a mesh, the
-    all-reduce of the arc sums, in the plain version's order."""
+    all-reduce of the arc sums, in the plain version's order; the
+    writeback into ``out`` if given."""
+    check_out("bus_update", out, u)
     if not _route("bus_update", _blocks(u, z, l, rho)):
-        return kernels.bus_update(u, z, l, rho, gd, Pd=Pd, Qd=Qd)
+        return land(out, kernels.bus_update(u, z, l, rho, gd, Pd=Pd, Qd=Qd))
     arcs, gens = bus_values(u, z, l, rho, gd)
     agg = all_reduce_sum(bus_cuda.bus_scatter(
         arcs, gd.arc_bus, gd.arc_ptr, gd.arc_idx), gd.mesh)
     gsum = bus_cuda.bus_scatter(gens, gd.gen_bus, gd.gen_ptr, gd.gen_idx)
     wtm = bus_solve(agg, gsum, gd, gd.Pd if Pd is None else Pd,
                     gd.Qd if Qd is None else Qd)
-    return bus_writeback(u, z, l, rho, wtm, gd)
+    return bus_writeback(u, z, l, rho, wtm, gd, out=out)
 
 
 # ---- the residual
@@ -350,18 +401,24 @@ def residual_blocks(ngen: int, nline: int) -> int:
     return -(-(2 * ngen + 8 * nline) // THREADS)
 
 
-def residual_partials(sol, gd):
-    """(rp, rd, part): rp and rd, and the (15, nblocks) block sums of the
-    residual's first pass (``acopf_residual_partials``); on the CPU
+def residual_partials(sol, gd, out=None):
+    """(rp, rd, part): rp and rd (into ``out``'s pair if given; they are
+    not read), and the (15, nblocks) block sums of the residual's first
+    pass (``acopf_residual_partials``); on the CPU
     ``residual_partials_plain``."""
     ngen, nline = _sizes(sol.u)
     floats = (_blocks(sol.u, sol.v, sol.z, sol.z_prev, sol.lz, sol.l,
                       sol.rho) + [gd.line_mask, gd.c2, gd.c1, gd.c0])
+    rp, rd = (None, None) if out is None else out
+    check_out("residual_partials", rp, sol.u)
+    check_out("residual_partials", rd, sol.u)
     if not _route("residual_partials", floats, ngen=ngen, nline=nline):
-        return residual_partials_plain(sol, gd)
+        rp_, rd_, part = residual_partials_plain(sol, gd)
+        return land(rp, rp_), land(rd, rd_), part
     dtype, dev = sol.u.gen.dtype, sol.u.gen.device
     nb = residual_blocks(ngen, nline)
-    rp, rd = _like(sol.u), _like(sol.u)
+    rp = _like(sol.u) if rp is None else rp
+    rd = _like(sol.u) if rd is None else rd
     part = torch.empty((LINE_SUMS + GEN_SUMS, nb), dtype=dtype, device=dev)
     _launch("acopf_residual_partials", dev, dtype,
             *_ptrs(floats + _blocks(rp, rd) + [part]), 2 * ngen, 8 * nline,
@@ -369,13 +426,26 @@ def residual_partials(sol, gd):
     return rp, rd, part
 
 
-def residual_final(line_part, gen_part, beta):
+def check_scalars_out(what: str, out, n: int, like) -> None:
+    """A destination of ``n`` scalars: a contiguous (n,) float tensor on
+    ``like``'s device, of any float type."""
+    if out is not None and (out.shape != (n,) or not out.is_contiguous()
+                            or not out.dtype.is_floating_point
+                            or out.device != like.device):
+        raise ValueError(f"{what}: out must be a contiguous ({n},) float "
+                         f"tensor on {like.device}; got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+
+
+def residual_final(line_part, gen_part, beta, out=None):
     """The (6,) scalars ``SCALARS`` from the block sums: the (7, nblocks)
     line rows (all-reduced over a mesh) and the (8, nblocks) generator and
     objective rows (``acopf_residual_final``); on the CPU
-    ``residual_final_plain``."""
+    ``residual_final_plain``. Into ``out`` if given: written by the kernel
+    where it has the block sums' type, else copied there."""
+    check_scalars_out("residual_final", out, len(SCALARS), line_part)
     if not _route("residual_final", [line_part, gen_part]):
-        return residual_final_plain(line_part, gen_part, beta)
+        return land(out, residual_final_plain(line_part, gen_part, beta))
     nb = line_part.shape[1]
     if line_part.shape != (LINE_SUMS, nb) or gen_part.shape != (GEN_SUMS,
                                                                 nb):
@@ -383,23 +453,34 @@ def residual_final(line_part, gen_part, beta):
                          f"{tuple(line_part.shape)} and "
                          f"{tuple(gen_part.shape)}")
     dtype, dev = line_part.dtype, line_part.device
-    out = torch.empty(len(SCALARS), dtype=dtype, device=dev)
+    dst = out if out is not None and out.dtype == dtype else torch.empty(
+        len(SCALARS), dtype=dtype, device=dev)
     _launch("acopf_residual_final", dev, dtype, line_part.data_ptr(),
             gen_part.data_ptr(), nb, *_scalar(beta, "residual_final", dtype,
-                                              dev), out.data_ptr())
-    return out
+                                              dev), dst.data_ptr())
+    return land(out, dst)
 
 
-def residual_update(sol, gd, beta):
+def residual_update(sol, gd, beta, out=None):
     """``kernels.residual_update``: (rp, rd, scalars) in two launches, with
     the line rows of the block sums all-reduced between them under a mesh;
-    the scalars are 0-d views of one (6,) tensor."""
+    the scalars are 0-d views of one (6,) tensor. ``out`` is (rp, rd, the
+    (6,) scalars), each a destination or None."""
+    rp, rd, scalars = (None, None, None) if out is None else out
     if not _route("residual_update", _blocks(sol.u)):
-        return kernels.residual_update(sol, gd, beta)
-    rp, rd, part = residual_partials(sol, gd)
+        for t in (rp, rd):
+            check_out("residual_update", t, sol.u)
+        check_scalars_out("residual_update", scalars, len(SCALARS), sol.u.gen)
+        rp_, rd_, vals = kernels.residual_update(sol, gd, beta)
+        if scalars is None:
+            return land(rp, rp_), land(rd, rd_), vals
+        scalars.copy_(torch.stack([vals[k] for k in SCALARS]))
+        return (land(rp, rp_), land(rd, rd_),
+                dict(zip(SCALARS, scalars.unbind())))
+    rp, rd, part = residual_partials(sol, gd, out=(rp, rd))
     line = all_reduce_sum(part[:LINE_SUMS], gd.mesh)
-    out = residual_final(line, part[LINE_SUMS:], beta)
-    return rp, rd, dict(zip(SCALARS, out.unbind()))
+    vals = residual_final(line, part[LINE_SUMS:], beta, out=scalars)
+    return rp, rd, dict(zip(SCALARS, vals.unbind()))
 
 
 # ---- the residual's fixed tree, as torch ops (the kernels' plain versions)

@@ -23,6 +23,12 @@ state dtype other than float32 or float64, or, on the card, a
 non-contiguous input, a mixed dtype or a wrong shape raises. Every output
 is bit-identical to the plain version on the card.
 
+``out``: the unpack and the stats take an optional destination shaped as
+what they return, and return it: on the card the kernels write it in place
+of new tensors (the line rows may be the old ones, ``u_old``: a lane reads
+only its own row), on the CPU the plain version's results are copied into
+it. The fused driver passes its carry's ALM state and stats buffer.
+
 ``inner_iter`` is a Python int in the host loop (by value) and a 0-d int64
 tensor in the fused loop (by pointer: a replayed graph reads its value at
 the time); it is never staged into a new tensor here. Nothing here reads
@@ -67,8 +73,8 @@ _SIGS = {
     #  stream)
     "branch_pack": [_P] * 29 + [_I, _P, _L, _D, _P],
     # (x, lam, mu, minor, alm, cviol, u_old, Y x 8, mask, act, u_new,
-    #  lam_up, mu_up, lane_steps, part, B, nblocks, stream)
-    "branch_unpack": [_P] * 22 + [_I, _I, _P],
+    #  lam1_up, lam2_up, mu_up, lane_steps, part, B, nblocks, stream)
+    "branch_unpack": [_P] * 23 + [_I, _I, _P],
 }
 #: (part, nblocks, 1/nline, out, steps, stream)
 _STATS_SIG = [_P, _I, _D, _P, _P, _P]
@@ -233,74 +239,122 @@ def unpack_blocks(B: int) -> int:
     return -(-B // THREADS)
 
 
+def _land_alm(out, alm):
+    """The ALM state ``alm`` in ``out`` (or as it is, for None)."""
+    if out is None:
+        return alm
+    return BranchALMState(**{k: acopf_cuda.land(getattr(out, k),
+                                                getattr(alm, k))
+                             for k in ("lam1", "lam2", "mu")})
+
+
+def _check_unpack_out(out, u_old, dtype) -> tuple:
+    """The unpack's destinations (u_new, the ALM state, lane_steps), each
+    None or of its shape and type on ``u_old``'s device."""
+    u, alm, steps = (None, None, None) if out is None else out
+    B = u_old.shape[0]
+    want = [("out u_new", u, (B, 8), dtype),
+            ("out lane_steps", steps, (B,), torch.int32)]
+    if alm is not None:
+        want += [(f"out {k}", getattr(alm, k), (B,), dtype)
+                 for k in ("lam1", "lam2", "mu")]
+    given = [w for w in want if w[1] is not None]
+    if given:
+        validate("branch_unpack",
+                 [("u_old", u_old, (B, 8), u_old.dtype)] + given)
+    return u, alm, steps
+
+
 def branch_unpack(res, sol, gd, active0, use_linelimit: bool, out_dtype,
-                  steps=None):
+                  steps=None, out=None):
     """``branch.branch_unpack_plain`` in two launches (``unpack_partials``,
     ``branch_stats``): (u_new (B, 8), the new ALM state, lane_steps (B,)
     int32, the (5,) stats ``STATS``). The stats are this batch's, before
     any all-reduce; the ALM state is views of ``res`` (fp64 copies under
     mixed precision), or ``sol``'s without line limits. ``steps``, a 0-d
-    int64 tensor or None, gets the stats' two sums added to it."""
+    int64 tensor or None, gets the stats' two sums added to it. ``out``
+    mirrors the result, each entry a destination or None."""
     inputs = unpack_inputs(res, sol, gd, active0, use_linelimit, out_dtype)
+    *outs, stats = (None,) * 4 if out is None else out
     if not _route("branch_unpack", inputs[6:] + inputs[:6]):
         from ..models.acopf.branch import branch_unpack_plain
-        return branch_unpack_plain(res, sol, gd, active0, use_linelimit,
-                                   out_dtype, steps)
+        u, alm, lane = _check_unpack_out(outs, sol.u.line, out_dtype)
+        acopf_cuda.check_scalars_out("branch_unpack", stats, len(STATS),
+                                     sol.u.line)
+        got = branch_unpack_plain(res, sol, gd, active0, use_linelimit,
+                                  out_dtype, steps)
+        return (acopf_cuda.land(u, got[0]), _land_alm(alm, got[1]),
+                acopf_cuda.land(lane, got[2]), acopf_cuda.land(stats, got[3]))
     u_new, new_alm, lane_steps, part = unpack_partials(
-        res, sol, gd, active0, use_linelimit, out_dtype)
-    return u_new, new_alm, lane_steps, branch_stats(part, gd.nline, steps)
+        res, sol, gd, active0, use_linelimit, out_dtype, out=outs)
+    return u_new, new_alm, lane_steps, branch_stats(part, gd.nline, steps,
+                                                    out=stats)
 
 
-def unpack_partials(res, sol, gd, active0, use_linelimit: bool, out_dtype):
+def unpack_partials(res, sol, gd, active0, use_linelimit: bool, out_dtype,
+                    out=None):
     """The unpack's first launch (``branch_unpack``): (u_new, the new ALM
     state, lane_steps, the (3, nblocks) stats partials: each block's sums
     of ``alm_iters`` and ``minor_iters`` times the mask and its largest
-    active violation). CUDA tensors only (``branch_unpack`` routes the CPU
-    to the plain version first)."""
+    active violation), the first three into ``out``'s if given (with line
+    limits the kernel writes the ALM state there; without, ``sol``'s is
+    copied there). CUDA tensors only (``branch_unpack`` routes the CPU to
+    the plain version first)."""
     inputs = unpack_inputs(res, sol, gd, active0, use_linelimit, out_dtype)
     validate("branch_unpack", inputs[6:] + inputs[:6])
     u_old = sol.u.line
     dtype, dev, B = out_dtype, u_old.device, u_old.shape[0]
+    u_new, alm_out, lane_steps = _check_unpack_out(out, u_old, dtype)
     solve_dtype = res.x.dtype
     sfx = _types("branch_unpack", dtype, solve_dtype)
-    u_new = torch.empty_like(u_old)
-    widen = use_linelimit and solve_dtype != dtype
-    lam_up = torch.empty((2, B), dtype=dtype, device=dev) if widen else None
-    mu_up = torch.empty(B, dtype=dtype, device=dev) if widen else None
-    lane_steps = torch.empty(B, dtype=torch.int32, device=dev)
+    if u_new is None:
+        u_new = torch.empty_like(u_old)
+    if lane_steps is None:
+        lane_steps = torch.empty(B, dtype=torch.int32, device=dev)
+    # the ALM state the kernel writes: a caller's, or widened copies
+    # under mixed precision; else it stays the batch's own
+    new_alm = alm_out if use_linelimit else None
+    if use_linelimit and new_alm is None and solve_dtype != dtype:
+        lam = torch.empty((2, B), dtype=dtype, device=dev)
+        new_alm = BranchALMState(lam1=lam[0], lam2=lam[1],
+                                 mu=torch.empty(B, dtype=dtype, device=dev))
     nb = unpack_blocks(B)
     part = torch.empty((3, nb), dtype=dtype, device=dev)
     if B > 0:   # an empty batch launches no kernel
+        ups = ([None] * 3 if new_alm is None else
+               [new_alm.lam1.data_ptr(), new_alm.lam2.data_ptr(),
+                new_alm.mu.data_ptr()])
         _launch("branch_unpack",
                 f"branch_unpack_{_INSTANCE[use_linelimit]}_{sfx}", dev,
-                *_ptrs(inputs), u_new.data_ptr(),
-                None if lam_up is None else lam_up.data_ptr(),
-                None if mu_up is None else mu_up.data_ptr(),
+                *_ptrs(inputs), u_new.data_ptr(), *ups,
                 lane_steps.data_ptr(), part.data_ptr(), B, nb)
-    if use_linelimit:
-        lam, mu = (lam_up, mu_up) if widen else (res.lam, res.mu)
-        new_alm = BranchALMState(lam1=lam[0], lam2=lam[1], mu=mu)
-    else:
-        new_alm = sol.branch_alm
+    if not use_linelimit:
+        new_alm = _land_alm(alm_out, sol.branch_alm)
+    elif new_alm is None:
+        new_alm = BranchALMState(lam1=res.lam[0], lam2=res.lam[1],
+                                 mu=res.mu)
     return u_new, new_alm, lane_steps, part
 
 
-def branch_stats(part, nline: int, steps=None):
+def branch_stats(part, nline: int, steps=None, out=None):
     """The (5,) stats ``STATS`` from the unpack's (3, nblocks) partials in
     one launch (``branch_stats``), the averages over ``nline``; CUDA
     tensors only, as ``unpack_partials``. ``steps``, a 0-d int64 tensor on
     the same device or None, gets the two sums (the batch's TRON steps)
-    added to it by the same launch."""
+    added to it by the same launch. Into ``out`` if given: written by the
+    kernel where it has the partials' type, else copied there."""
     dtype, dev = part.dtype, part.device
     nb = part.shape[1]
     inputs = [("part", part, (3, nb), dtype)]
     if steps is not None:
         inputs.append(("steps", steps, (), torch.int64))
     validate("branch_stats", inputs)
-    out = torch.empty(len(STATS), dtype=dtype, device=dev)
+    acopf_cuda.check_scalars_out("branch_stats", out, len(STATS), part)
+    dst = out if out is not None and out.dtype == dtype else torch.empty(
+        len(STATS), dtype=dtype, device=dev)
     if nb == 0:
-        return out.zero_()
+        return acopf_cuda.land(out, dst.zero_())
     _launch("branch_stats", f"branch_stats_{_TYPES[(dtype, dtype)]}", dev,
             part.data_ptr(), nb, acopf_cuda.host_reciprocal(nline, dtype),
-            out.data_ptr(), None if steps is None else steps.data_ptr())
-    return out
+            dst.data_ptr(), None if steps is None else steps.data_ptr())
+    return acopf_cuda.land(out, dst)

@@ -106,23 +106,50 @@ def state(request, case9_path):
 def _wrapped_and_plain(name, tm, s):
     """(the wrapper's outputs, the plain function's) of hook ``name`` as
     lists of tensors."""
+    wrapped, plain, _ = _calls(name, tm, s)
+    return _flat(wrapped()), _flat(plain())
+
+
+def _flat(x):
+    if isinstance(x, Blocks):
+        return [x.gen, x.line]
+    if isinstance(x, tuple):
+        return [t for y in x for t in _flat(y)]
+    if isinstance(x, dict):
+        return [x[k] for k in A.SCALARS]
+    return [x]
+
+
+def _calls(name, tm, s):
+    """(the wrapper, its plain version, the wrapper given a destination
+    ``out``, or None where it takes none) of hook ``name``."""
     gd = tm.grid
     bt = torch.tensor(BETA, dtype=torch.float64)
-
-    def flat(x):
-        if isinstance(x, Blocks):
-            return [x.gen, x.line]
-        if isinstance(x, tuple):
-            return [t for y in x for t in flat(y)]
-        if isinstance(x, dict):
-            return [x[k] for k in A.SCALARS]
-        return [x]
 
     agg = torch.randn(gd.nbus, 8, dtype=torch.float64,
                       generator=torch.Generator().manual_seed(1)).abs()
     gsum = torch.randn(gd.nbus, 4, dtype=torch.float64,
                        generator=torch.Generator().manual_seed(2)).abs()
     wtm = K.bus_solve(agg, gsum, gd, gd.Pd, gd.Qd)
+    part = A.residual_partials(s, gd)[2]
+    into = {
+        "generator_update": lambda out: A.generator_update(
+            s.u.gen, s.v.gen, s.z.gen, s.l.gen, s.rho.gen, gd.pgmin,
+            gd.pgmax, gd.qgmin, gd.qgmax, gd.c2, gd.c1, gd.baseMVA,
+            obj_scale=tm.par.obj_scale, out=out),
+        "bus_update": lambda out: A.bus_update(s.u, s.z, s.l, s.rho, gd,
+                                               out=out),
+        "bus_writeback": lambda out: A.bus_writeback(s.u, s.z, s.l, s.rho,
+                                                     wtm, gd, out=out),
+        "z_update": lambda out: A.z_update(s.u, s.v, s.l, s.rho, s.lz, bt,
+                                           out=out),
+        "l_update": lambda out: A.l_update(s.z, s.lz, BETA, out=out),
+        "residual_partials": lambda out: A.residual_partials(
+            s, gd, out=None if out is None else out[:2]),
+        "residual_final": lambda out: A.residual_final(
+            part[:A.LINE_SUMS], part[A.LINE_SUMS:], bt, out=out),
+        "residual_update": lambda out: A.residual_update(s, gd, bt, out=out),
+    }
     calls = {
         "generator_update": (
             lambda: A.generator_update(
@@ -151,16 +178,63 @@ def _wrapped_and_plain(name, tm, s):
                       lambda: K.lz_update(s.z, s.lz, bt, 1e12)),
         "residual_update": (lambda: A.residual_update(s, gd, bt),
                             lambda: K.residual_update(s, gd, bt)),
+        "residual_partials": (lambda: A.residual_partials(s, gd),
+                              lambda: A.residual_partials_plain(s, gd)),
+        "residual_final": (
+            lambda: A.residual_final(part[:A.LINE_SUMS], part[A.LINE_SUMS:],
+                                     bt),
+            lambda: A.residual_final_plain(part[:A.LINE_SUMS],
+                                           part[A.LINE_SUMS:], bt)),
     }
     wrapped, plain = calls[name]
-    return flat(wrapped()), flat(plain())
+    return wrapped, plain, into.get(name)
+
+
+def _destination(ref):
+    """Zeroed tensors shaped as the result ``ref``, in its structure (the
+    residual's scalars as one (6,) tensor)."""
+    if isinstance(ref, Blocks):
+        return Blocks(gen=torch.zeros_like(ref.gen),
+                      line=torch.zeros_like(ref.line))
+    if isinstance(ref, tuple):
+        return tuple(_destination(x) for x in ref)
+    if isinstance(ref, dict):
+        return torch.zeros(len(A.SCALARS), dtype=ref[A.SCALARS[0]].dtype)
+    return torch.zeros_like(ref)
+
+
+INTO = ("generator_update", "bus_update", "bus_writeback", "z_update",
+        "l_update", "residual_partials", "residual_final", "residual_update")
 
 
 @pytest.mark.parametrize("name", [
     "generator_update", "bus_update", "bus_values", "bus_solve",
-    "bus_writeback", "z_update", "l_update", "lz_update", "residual_update"])
+    "bus_writeback", "z_update", "l_update", "lz_update", "residual_update"]
+    + [f"{k}:out" for k in INTO])
 def test_wrapper_on_cpu_is_the_plain_version(state, name):
-    got, ref = _wrapped_and_plain(name, state["tmodel"], state["tsol"])
+    """A wrapper on CPU tensors is its plain version, bit for bit; given
+    ``out`` (``<hook>:out``), it returns that very destination, holding
+    what it returns without one."""
+    name, _, into = name.partition(":")
+    if not into:
+        got, ref = _wrapped_and_plain(name, state["tmodel"], state["tsol"])
+    else:
+        wrapped, _, with_out = _calls(name, state["tmodel"], state["tsol"])
+        fresh = wrapped()
+        dst = _destination(fresh)
+        res = with_out(dst)
+        want = _flat(dst)
+        if name == "residual_update":
+            assert [t.data_ptr() for t in _flat(res[2])] == [
+                t.data_ptr() for t in dst[2].unbind()]
+            assert torch.equal(dst[2], torch.stack(_flat(fresh[2])))
+            res, want = res[:2], want[:4]
+        elif name == "residual_partials":
+            res, want, fresh = res[:2], want[:4], fresh[:2]
+        got = _flat(res)
+        assert len(got) == len(want)
+        assert all(a is b for a, b in zip(got, want))
+        ref = _flat(fresh)[:len(got)]
     assert len(got) == len(ref)
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and torch.equal(a, b)

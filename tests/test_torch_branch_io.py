@@ -215,6 +215,46 @@ def test_wrappers_on_cpu_are_the_plain_versions(models, use_linelimit, types,
                                                   "sum_minor_it"]
 
 
+@pytest.mark.parametrize("types", ["f64", "f32", "mixed"])
+@pytest.mark.parametrize("use_linelimit", [True, False],
+                         ids=["linelimit", "polar"])
+def test_unpack_writes_into_out(models, use_linelimit, types):
+    """Given destinations, the unpack returns those very tensors, holding
+    what it returns without them: the line rows and the ALM state being
+    the state's own (the fused loop's carry, written in place), the stats
+    an fp64 buffer whatever the state's type. A destination of another
+    shape raises."""
+    _, tdata, _ = models
+    model, par, solve = _model(tdata, types, use_linelimit)
+    gd = model.grid
+    sol = _tstate(model, _draws(gd.nline_padded))
+    act = branch_cuda.branch_pack(sol, gd, par, 2, use_linelimit, solve)[-1]
+    n, ncon = (6, 2) if use_linelimit else (4, 0)
+    B = gd.nline_padded
+    res = _random_result(B, n, ncon, solve)
+    out_dtype = sol.u.line.dtype
+    ref = _flat(branch_cuda.branch_unpack(res, sol, gd, act, use_linelimit,
+                                          out_dtype))
+    alm = BranchALMState(**{k: getattr(sol.branch_alm, k).clone()
+                            for k in ("lam1", "lam2", "mu")})
+    mine = sol.replace(u=sol.u.replace(line=sol.u.line.clone()),
+                       branch_alm=alm)
+    lane = torch.zeros(B, dtype=torch.int32)
+    stats = torch.zeros(len(branch_cuda.STATS), dtype=torch.float64)
+    dst = (mine.u.line, alm, lane, stats)
+    got = branch_cuda.branch_unpack(res, mine, gd, act, use_linelimit,
+                                    out_dtype, out=dst)
+    assert got[0] is mine.u.line and got[2] is lane and got[3] is stats
+    assert all(getattr(got[1], k) is getattr(alm, k)
+               for k in ("lam1", "lam2", "mu"))
+    for a, b in zip(_flat(got)[:5], ref[:5]):
+        assert _same(a, b)
+    assert torch.equal(stats, ref[5].to(torch.float64))
+    with pytest.raises(ValueError, match="out u_new"):
+        branch_cuda.branch_unpack(res, sol, gd, act, use_linelimit, out_dtype,
+                                  out=(sol.u.line[1:], None, None, None))
+
+
 def _jax_state(jmodel, d):
     """JAX's flat start with the same draws as ``_tstate``."""
     jsol = JM.init_solution(jmodel, 4e2, 4e4)

@@ -284,7 +284,10 @@ def test_one_level_solver_is_reused_across_solves():
 
 def test_store_stages_aliases():
     """A body's output that is another buffer (z_prev = z) is copied out
-    before the buffers are overwritten."""
+    before the buffers are overwritten; where that buffer is not
+    overwritten by the store (z written in place afterwards, as the hooks
+    of a model that ``writes_into_carry`` do), it is copied straight, and
+    the copy holds the old z exactly."""
     z, zp = torch.tensor([1.0, 2.0]), torch.tensor([0.0, 0.0])
     from exaadmm_tpu_torch.utils.environment import Blocks
     c = Carry(Blocks(gen=z, line=zp), {})
@@ -293,6 +296,59 @@ def test_store_stages_aliases():
     c.store(Blocks(gen=gen + 10.0, line=gen))
     assert c.state[0].tolist() == [11.0, 12.0]
     assert c.state[1].tolist() == [1.0, 2.0]
+    assert c.copies == 3    # the clone of gen and the two copies
+
+    # z_prev <- z with z left as it is: one copy, no clone; then z in place
+    old = torch.tensor([0.1, 1.0 / 3.0], dtype=torch.float64)
+    c = Carry(Blocks(gen=old, line=torch.zeros(2, dtype=torch.float64)), {})
+    zb, zpb = c.state
+    c.store(Blocks(gen=zb, line=zb))
+    assert c.copies == 1 and c.state[0] is zb and c.state[1] is zpb
+    torch.mul(zb, 3.0, out=zb)
+    assert torch.equal(zpb, old) and not torch.equal(zb, old)
+    # the carry's views: ``put`` of a view of its buffer copies nothing
+    c = Carry(torch.zeros(1), {"res": torch.zeros(3)}, {"b": ("res", 1)})
+    c.v["res"].copy_(torch.tensor([1.0, 2.0, 3.0]))
+    assert float(c.v["b"]) == 2.0
+    c.put("b", c.v["res"].unbind()[1])
+    c.put("b", torch.tensor(5.0))
+    assert c.v["res"].tolist() == [1.0, 5.0, 3.0]
+    w = c.clone()
+    assert w.v["b"].data_ptr() == w.v["res"][1].data_ptr()
+    assert w.v["res"].data_ptr() != c.v["res"].data_ptr()
+
+
+# (model, copies ``Carry.store`` makes in one inner iteration): ACOPF's
+# hooks write into the carry, so z_prev's two copies and the new line rows
+# of u (returned in a tensor of their own) are left; the multi-period
+# model's hooks return fresh tensors, which the body copies in (z_prev's
+# two clones and two copies among them)
+STORE_COPIES = {
+    "case9": (lambda: E.solve_acopf(CASE9, outer_iterlim=2, **KW9), 3),
+    "case9 no line limits": (lambda: E.solve_acopf(
+        CASE9, outer_iterlim=2, use_linelimit=False, **KW9), 3),
+    "case9 x 2 periods": (lambda: E.solve_mpacopf(
+        CASE9, DEMAND9, end_period=2, outer_iterlim=2, warm_start=False,
+        **KW9), 27),
+}
+
+
+@pytest.mark.parametrize("case", list(STORE_COPIES))
+def test_inner_body_store_copies(case, monkeypatch):
+    """The copies ``Carry.store`` makes in each inner iteration of a fused
+    solve run by the host (``graph_loop.run_on_host``)."""
+    call, want = STORE_COPIES[case]
+    seen = []
+    inner = two.FusedSolver._inner
+
+    def counted(self, c):
+        n = c.copies
+        inner(self, c)
+        seen.append(c.copies - n)
+    monkeypatch.setattr(two.FusedSolver, "_inner", counted)
+    info = call().info
+    assert len(seen) == info.cumul > 2
+    assert set(seen) == {want}
 
 
 def _spy(calls, name):

@@ -231,6 +231,39 @@ def test_tron_steps_equal_the_host_loop_stats(case, monkeypatch):
     assert isinstance(counted, int) and counted == sum(sums) > 0
 
 
+@pytest.mark.parametrize("case", ["case9", "case9 x 2 periods"])
+def test_build_counts_store_copies(case, monkeypatch):
+    """``loop.build``'s ``store_copies``: the copies ``Carry.store`` makes
+    in one run of each body, counted by the graph's warm-up
+    (``_run_bodies``), so None on the CPU. ACOPF's hooks write into the
+    carry, so its inner body copies z_prev (two blocks) and the new line
+    rows of u; the multi-period model's return fresh tensors, all copied
+    in; each tail copies the new lz."""
+    built = []
+    build = two.FusedSolver._build
+
+    def spy(self, *args):
+        built.append(self)
+        return build(self, *args)
+    monkeypatch.setattr(two.FusedSolver, "_build", spy)
+    tracing.enable()
+    try:
+        if case == "case9":
+            E.solve_acopf(CASE9, outer_iterlim=1, **KW9)
+        else:
+            E.solve_mpacopf(CASE9, DEMAND9, end_period=2, outer_iterlim=1,
+                            warm_start=False, **KW9)
+        (span,) = [s for s in tracing.take() if s.name == "loop.build"]
+    finally:
+        tracing.disable()
+    assert span.attrs["store_copies"] is None
+    (run,) = built
+    run._run_bodies(run.carry.clone())    # the card's warm-up
+    want = ({"pre": 0, "inner": 3, "tail": 2} if case == "case9"
+            else {"pre": 0, "inner": 27, "tail": 3})
+    assert run.store_copies == want
+
+
 def test_step_counter_of_the_plain_unpack():
     """``branch_unpack_plain`` adds its stats' two sums to a counter, which
     leaves its outputs as they were; ``branch_stats`` refuses a counter
