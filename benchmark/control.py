@@ -1,8 +1,8 @@
 """The readings that a cell's limits are set from: the program as the
 configuration states it, the control (the same program in the nearest
 precision below, ``--dtype float32`` for an fp64 configuration: the port's
-own fp32 path) and planted faults, each over the same requests of each
-seed.
+own fp32 path) and planted faults (``FAULTS`` of the configuration model's
+``requests/<model>.py``), each over the same requests of each seed.
 
     python3 benchmark/control.py --workload <cell> --seeds 1 2 3 \\
         --seconds 5 --dtype float32 --fault none c1_halved
@@ -23,24 +23,6 @@ from pathlib import Path
 sys.path[0] = str(Path(__file__).resolve().parent.parent)
 
 
-def c1_scaled(factor: float):
-    """A fault in the generator step: its linear cost coefficient times
-    ``factor`` (0: left out), while the objective keeps the true one."""
-    from exaadmm_tpu_torch.ops import acopf_cuda
-    real = acopf_cuda.generator_update
-
-    def generator_update(*args, **kwargs):
-        args = list(args)
-        args[10] = args[10] * factor   # c1
-        return real(*args, **kwargs)
-    return acopf_cuda, "generator_update", generator_update
-
-
-FAULTS = {"none": None, "c1_dropped": lambda: c1_scaled(0.0),
-          "c1_halved": lambda: c1_scaled(0.5),
-          "c1_plus_10pct": lambda: c1_scaled(1.1)}
-
-
 def readings(bench, name, seeds, seconds, dtype, fault, device="cuda"):
     """One dict per seed: whether the run was correct, its requests and
     the check's worst reading of every number."""
@@ -48,10 +30,16 @@ def readings(bench, name, seeds, seconds, dtype, fault, device="cuda"):
 
     from benchmark import harness, port
 
-    planted = FAULTS[fault]() if FAULTS[fault] else None
-    if planted:
-        owner, attr, fn = planted
-        saved = getattr(owner, attr)
+    _, config, _ = harness.resolve(bench, name)
+    planted = None
+    if fault != "none":
+        faults = port.kinds(config["model"]).FAULTS
+        if fault not in faults:
+            raise ValueError(f"no fault {fault!r} for model "
+                             f"{config['model']!r}; there are "
+                             f"{sorted(faults)}")
+        owner, attr, fn = faults[fault]()
+        planted = (owner, attr, getattr(owner, attr))
         setattr(owner, attr, fn)
     out = []
     try:
@@ -69,7 +57,7 @@ def readings(bench, name, seeds, seconds, dtype, fault, device="cuda"):
                 torch.cuda.empty_cache()
     finally:
         if planted:
-            setattr(owner, attr, saved)
+            setattr(*planted)
     return out
 
 
@@ -83,8 +71,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--dtype", nargs="+", default=["float64", "float32"])
-    ap.add_argument("--fault", nargs="+", default=["none"],
-                    choices=sorted(FAULTS))
+    ap.add_argument("--fault", nargs="+", default=["none"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     bench = harness.load_benchmark()

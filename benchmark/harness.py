@@ -3,9 +3,10 @@ check, and the result line.
 
 Everything that belongs to one cell comes from data that the harness finds
 by the names in ``BENCHMARK.json``: the configuration's file (its grid,
-made by ``grids/<generator>.py``'s ``make``, solver settings and the
-check's limits), ``traffic/<traffic>.json`` (read by ``traffic.py``), and
-one reader per metric, ``metrics/<metric>.py``,
+made by ``grids/<generator>.py``'s ``make``, its ``model``, whose request
+kinds are ``requests/<model>.py``'s (``port.make``), solver settings and
+the check's limits), ``traffic/<traffic>.json`` (read by ``traffic.py``),
+and one reader per metric, ``metrics/<metric>.py``,
 whose ``read(run)`` returns the metric's value from the run's record, or
 None when the run holds nothing to read (the metric is then left out).
 
@@ -25,7 +26,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import importlib.util
 import json
 import subprocess
 import sys
@@ -37,10 +37,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from . import check, port, trace as trace_mod
+from . import HERE, check, port, trace as trace_mod
+from . import load as _load
 from .traffic import Traffic
 
-HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
 #: answers kept for the check, besides the slowest
 SAMPLE = 8
@@ -54,8 +54,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "exaadmm_tpu")
 @dataclasses.dataclass
 class RunRecord:
     """What a metric reader reads: the configuration, the set-up time, one
-    dict per window request (``seconds``, ``periods`` answered (1 once
-    Solved, else 0), ``status``,
+    dict per window request (``seconds``, ``periods`` answered (all the
+    periods it asked for once Solved, else 0), ``status``,
     and in a traced run the ``solves`` it made, as ``trace.Recorder``
     records them), the window's length, and in a traced run the profiled
     slice (``trace.DeviceTrace``) with the solves it made."""
@@ -95,15 +95,6 @@ def metrics_of(bench: dict, cell: dict, traced: bool) -> list:
             if cell["name"] in m.get("workloads", [cell["name"]])]
 
 
-def _load(folder: str, name: str):
-    path = HERE / folder / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"benchmark.{folder}.{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def load_reader(name: str):
     """The ``read`` function of ``metrics/<name>.py``."""
     return _load("metrics", name).read
@@ -130,7 +121,8 @@ def run(bench: dict, name: str, *, seed: int, seconds: float, traced: bool,
     request = port.make(config, traffic, g, device, dtype)
     tr = Traffic(traffic, seed)
     sample = check.Sample(SAMPLE, np.random.default_rng([seed, 1]))
-    rec = trace_mod.Recorder() if traced else None
+    rec = (trace_mod.Recorder(port.traced_calls(config["model"]))
+           if traced else None)
     slice_ = (None, [])
     with rec or contextlib.nullcontext():
         if traced:
@@ -176,7 +168,7 @@ def _window(request, tr, seconds, rec, sample):
         b = time.perf_counter()
         requests.append(dict(
             seconds=b - a, status=ans.status,
-            periods=int(ans.status == "Solved"),
+            periods=len(ans.factors) if ans.status == "Solved" else 0,
             solves=rec.take() if rec else []))
         sample.offer(ans, b - a)
         if b - t0 >= seconds:

@@ -92,3 +92,40 @@ def test_no_trace_reads_nothing():
                  "kernel.closed_form_roofline"):
         assert harness.load_reader(name)(rec) is None
 
+
+
+def test_recorder_wraps_the_calls_it_is_given_and_names_each_solve():
+    import types
+
+    import torch
+
+    from benchmark.trace import Recorder
+
+    class Solver:
+        dtype = torch.float64
+        carry = None
+
+        def __init__(self, model):
+            self.model = model
+
+        def __call__(self):
+            return None, types.SimpleNamespace(
+                cumul=5, outer=2, status="Solved", time_overall=0.1,
+                time_build=0.02)
+
+    class ModelMpacopf:
+        grid = types.SimpleNamespace(ngen=3, nline_padded=12, nbus=8)
+        T = 8
+
+    class ModelAcopf:
+        grid = ModelMpacopf.grid
+
+    real = Solver.__call__
+    with Recorder([(Solver, "__call__", "loop.solve")]) as rec:
+        assert Solver.__call__ is not real
+        for model in (ModelMpacopf(), ModelAcopf()):
+            Solver(model)()
+    assert Solver.__call__ is real
+    assert [(s["model"], s["periods"], s["built"]) for s in rec.take()] == [
+        ("ModelMpacopf", 8, True), ("ModelAcopf", 1, True)]
+    assert rec.take() == []

@@ -84,3 +84,43 @@ def test_stationarity_sees_a_cost_left_out(g):
     assert R.stationarity(g, pg, -wrong) > 0.1
     # generators at a bound are not held to it
     assert R.stationarity(g, pg, -wrong, pgmin=pg, pgmax=pg + 1) == 0.0
+
+
+def test_ramp_excess_inside_at_and_over_the_limit():
+    g = dict(pgmax=np.array([1.0, 2.0]))
+    # limits 0.1 and 0.2 a period
+    inside = np.array([[0.5, 1.0], [0.55, 0.9], [0.5, 0.95]])
+    assert R.ramp_excess(g, inside, 0.1) == pytest.approx(-0.5)
+    at = np.array([[0.5, 1.0], [0.625, 1.0], [0.5, 1.25]])
+    assert R.ramp_excess(g, at, 0.1) == pytest.approx(0.25)
+    at = np.array([[0.5, 1.0], [0.4, 1.0], [0.5, 1.2]])
+    assert R.ramp_excess(g, at, 0.1) == pytest.approx(0.0, abs=1e-12)
+    over = at.copy()
+    over[2, 1] = 1.26
+    assert R.ramp_excess(g, over, 0.1) == pytest.approx(0.3)
+    # one generator with no ramp at all: still, or any move is infinitely
+    # over its limit
+    still = dict(pgmax=np.array([1.0, 0.0]))
+    assert R.ramp_excess(still, inside[:, :1].repeat(2, 1) * [1, 0],
+                         0.1) == pytest.approx(-0.5)
+    assert R.ramp_excess(still, inside, 0.1) == np.inf
+    nan = inside.copy()
+    nan[1, 0] = np.nan
+    assert np.isnan(R.ramp_excess(g, nan, 0.1))
+
+
+def test_stationarity_leaves_out_generators_at_a_ramp_limit():
+    g = dict(pgmax=np.array([1.0, 1.0, 1.0]), pgmin=np.zeros(3),
+             c2=np.ones(3), c1=np.ones(3), baseMVA=1.0)
+    # generator 0 ramps at its limit from period 0 to 1, generator 1 from
+    # period 1 to 2 at 0.95 of it (the solver's tolerance), generator 2
+    # never
+    pg = np.array([[0.5, 0.5, 0.5], [0.6, 0.5, 0.5], [0.6, 0.405, 0.55]])
+    free = R.off_ramp_limits(g, pg, 0.1)
+    assert free.tolist() == [[False, True, True], [False, False, True],
+                             [True, False, True]]
+    mc = R.marginal_cost(g, pg[1])
+    # the price of generator 0 and 1 carries their ramps' multipliers
+    price = -mc * np.array([1.5, 0.5, 1.0])
+    assert R.stationarity(g, pg[1], price) == pytest.approx(0.5)
+    assert R.stationarity(g, pg[1], price, free=free[1]) == 0.0

@@ -20,6 +20,35 @@ def bench(tmp_path_factory):
     return tiny_bench.bench(tmp_path_factory.mktemp("tiny"))
 
 
+@pytest.fixture(scope="module")
+def sound(bench):
+    """The sound run of each cell, made once for the tests that read it."""
+    runs = {}
+
+    def get(cell):
+        if cell not in runs:
+            runs[cell] = tiny_bench.run(bench, cell)
+        return runs[cell]
+    return get
+
+
+#: the check's readings of each cell's sound run before the request kinds
+#: moved into ``requests/`` (read on a CPU at the commit before the move):
+#: the move changes nothing the check reads
+PARENT_READINGS = {
+    "synth9241.cold": {
+        "consensus": 0.559850092222634, "objective": 0.0,
+        "bus_balance": 4.996003610813204e-16, "flows": 0.0,
+        "line_overload": -0.17963709683098117, "bounds": 0.0,
+        "stationarity": 0.00020453825321348342},
+    "synth9241.track": {
+        "consensus": 0.845164010511371, "objective": 0.0,
+        "bus_balance": 4.579669976578771e-16, "flows": 0.0,
+        "line_overload": -0.2033093781620252, "bounds": 0.0,
+        "stationarity": 0.0},
+}
+
+
 def test_command_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
@@ -33,8 +62,8 @@ def test_command_fails_without_a_card():
 
 
 @pytest.mark.parametrize("cell", CELLS)
-def test_sound_run_is_correct(bench, cell):
-    res = tiny_bench.run(bench, cell)
+def test_sound_run_is_correct(sound, cell):
+    res = sound(cell)
     assert res["correct"], res["check"]
     assert res["attempted"] == 1 and res["failed"] == 0
     assert list(res)[-1] == "check"
@@ -52,6 +81,12 @@ def test_traced_run_reads_the_span_metrics(bench):
     # the CPU has no device trace: only the spans' metrics are read
     assert set(res["metrics"]) == {n for n in names
                                    if n.split(".")[0] in ("entry", "loop")}
+
+
+@pytest.mark.parametrize("cell", sorted(PARENT_READINGS))
+def test_sound_run_reads_what_it_read_before_the_move(sound, cell):
+    assert {k: c["value"] for k, c in sound(cell)["check"].items()} == \
+        PARENT_READINGS[cell]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -72,10 +107,13 @@ def _unchanged(real):
 
 
 def _half_left_out(real):
+    # the old rows are taken before the call: the program may write the
+    # new ones over ``sol.u.line``
     def branch_update(sol, *args, **kwargs):
+        old = sol.u.line.clone()
         u_line, alm, stats = real(sol, *args, **kwargs)
         half = u_line.shape[0] // 2
-        return (torch.cat([u_line[:half], sol.u.line[half:]]), alm, stats)
+        return (torch.cat([u_line[:half], old[half:]]), alm, stats)
     return branch_update
 
 
@@ -105,8 +143,8 @@ def test_objective_altered_is_not_correct(bench, cell, monkeypatch):
     from exaadmm_tpu_torch.models.acopf.model import ModelAcopf
     real = ModelAcopf.update_residual
 
-    def update_residual(self, *args):
-        sol, scalars = real(self, *args)
+    def update_residual(self, *args, **kwargs):
+        sol, scalars = real(self, *args, **kwargs)
         return sol, dict(scalars, objval=scalars["objval"] * (1 + 1e-7))
     monkeypatch.setattr(ModelAcopf, "update_residual", update_residual)
     res = tiny_bench.run(bench, cell)
@@ -117,8 +155,8 @@ def test_objective_altered_is_not_correct(bench, cell, monkeypatch):
 def test_c1_left_out_of_the_generator_step_is_not_correct(bench, cell,
                                                           monkeypatch):
     # the objective keeps the true cost, so only optimality can see it
-    from benchmark import control
-    monkeypatch.setattr(*control.FAULTS["c1_dropped"]())
+    from benchmark import port
+    monkeypatch.setattr(*port.kinds("acopf").FAULTS["c1_dropped"]())
     res = tiny_bench.run(bench, cell)
     assert not res["correct"], res["check"]
     assert res["check"]["stationarity"]["value"] > res["check"][

@@ -1,13 +1,15 @@
 """Spans, counters and the device trace of a ``--trace 1`` run.
 
 ``Recorder`` wraps, for the run's length, the port's calls at each layer
-boundary, from the benchmark's side:
+boundary, from the benchmark's side (``port.traced_calls`` names them):
 
-- ``entry.build_model``: the model's ``build_model`` (grid upload);
+- ``entry.build_model``: the model's ``build_model`` (grid upload), that
+  of the configuration's model (``MODEL`` of ``requests/<model>.py``);
 - ``loop.solve``: every call of the fused two-level solver
   (``FusedSolver.__call__``), whose ``IterationInformation`` it keeps:
   inner iterations, outer rounds, ``time_overall`` (launch to read-back),
-  ``time_build``, status, and the shapes of the model it ran;
+  ``time_build``, status, the shapes of the model it ran, the model's
+  class name and its periods (``model.T``, 1 for a single period);
 - ``loop.build``: the solver's build (warm-up, capture, instantiation);
 - ``loop.read_back``: the carry's one read-back at the solve's end.
 
@@ -31,19 +33,15 @@ SPANS = ("request", "entry.build_model", "loop.solve", "loop.build",
 
 
 class Recorder:
-    """Wraps the port's layer calls while open; ``solves`` lists every
-    fused solve since the last ``take()``."""
+    """Wraps the port's layer calls ``calls``, (owner, attribute, span)
+    each, while open; ``solves`` lists every ``loop.solve`` since the last
+    ``take()``."""
 
-    def __init__(self):
-        from exaadmm_tpu_torch.algorithms import admm_two_level, carry
-        from exaadmm_tpu_torch.models.acopf import model as acopf_model
+    def __init__(self, calls: list):
         self._targets = [
-            (acopf_model, "build_model", "entry.build_model", None),
-            (admm_two_level.FusedSolver, "__call__", "loop.solve",
-             self._record_solve),
-            (admm_two_level.FusedSolver, "_build", "loop.build", None),
-            (carry.Carry, "read_back", "loop.read_back", None),
-        ]
+            (owner, attr, span,
+             self._record_solve if span == "loop.solve" else None)
+            for owner, attr, span in calls]
         self._saved = []
         self.solves = []
 
@@ -70,6 +68,7 @@ class Recorder:
         self.solves.append(dict(
             ngen=gd.ngen, nline=gd.nline_padded, nbus=gd.nbus,
             itemsize=solver.dtype.itemsize, built=built,
+            model=type(model).__name__, periods=getattr(model, "T", 1),
             cumul=info.cumul, outer=info.outer, status=info.status,
             time_overall=info.time_overall, time_build=info.time_build))
 
